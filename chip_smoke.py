@@ -5,18 +5,27 @@
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions.
-2. Builds the three kernels from gqx_torch/csrc with nvcc (one process per
+2. Builds the six kernels from gqx_torch/csrc with nvcc (one process per
    source, all at once) and prints the build time.
-3. Holds each kernel against its plain PyTorch version at the shapes of the
-   canonical ResNet-50 HSQ unit (8 users, bf16 input, passes=1; plus a
-   float32 input at passes=2), and times kernel, plain version and, where
-   one exists, the single PyTorch call computing the same function.
-4. Runs the canonical training step (CIFAR ResNet-50, 8 users x 32, HSQ
-   c_dim 16 / k_bit 8 / n_bit 6, bf16 compute, random weights and data from
-   --seed): one warm-up step, then --steps steps with the launch counters
-   set to 0 just before and read just after, then the fp32-wire ``sgd`` step
-   of the same package for comparison.  The aggregate of one more step is
-   recomputed on the CPU through the plain versions and compared.
+3. Holds each kernel against its plain PyTorch version at the shapes the
+   training paths give it (the ResNet-50 HSQ unit, 8 users): the flat
+   encode, the fused decode-mean, the uniforms and the per-user decode at
+   dim 16 / K 256, the row-major encode and decode at dim 8 / K 1024, plus
+   a ragged dim and a codebook larger than shared memory; and times
+   kernel, plain version and, where one exists, the single PyTorch call
+   computing the same function.
+4. Runs four training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute,
+   hsq_passes=1, random weights and data from --seed), each for one
+   warm-up step and --steps steps with the launch counters set to 0 just
+   before and read just after:
+     P1  HSQ c_dim 16 / k_bit 8 / n_bit 6, parameter server (canonical);
+     P2  P1 with error feedback and the two-phase downlink;
+     P3  P1 as a chain ring;
+     P4  HSQ c_dim 8 / k_bit 10 (the row-major kernels).
+   The counters must equal what the code implies.  The aggregate of one
+   more step of each path (and P2's new error-feedback state) is recomputed
+   on the CPU through the plain versions from the same gradients, state and
+   seed, and compared.  Then the fp32-wire ``sgd`` step for comparison.
 5. Prints the ``kernels`` JSON line, the card line and, last, the result
    line {"ok": true, "device": {...}}.
 
@@ -72,13 +81,28 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def canonical_config(quantizer: str = "hsq"):
+# the training paths: what each adds to the canonical configuration, and the
+# launches of each kernel per step and HSQ unit that the code implies (U: once
+# per user; every kernel not named: none)
+PATHS = {
+    "P1": (dict(), dict(hsq_encode=1, philox_uniform=1, hsq_decode_mean=1)),
+    "P2": (dict(ef=True, two_phase=True),
+           dict(hsq_encode=2, philox_uniform=2, hsq_decode=2)),
+    "P3": (dict(mode="ring"), dict(hsq_encode="U", philox_uniform="U", hsq_decode="U")),
+    "P4": (dict(c_dim=8, k_bit=10),
+           dict(hsq_rows_encode=1, philox_uniform=1, hsq_rows_decode=1)),
+}
+EF_EPOCH = 1.0   # the error-feedback scale is config.ef_scale(EF_EPOCH)
+
+
+def canonical_config(quantizer: str = "hsq", **extra):
     from gqx_torch.config import GQConfig
 
-    extra = dict(c_dim=16, k_bit=8, n_bit=6) if quantizer == "hsq" else {}
+    kw = dict(c_dim=16, k_bit=8, n_bit=6) if quantizer == "hsq" else {}
+    kw.update(extra)
     return GQConfig(network="resnet50", dataset="synthetic", num_users=8,
                     batch_size=32, quantizer=quantizer, compute_dtype="bfloat16",
-                    hsq_passes=1, **extra)
+                    hsq_passes=1, **kw)
 
 
 def check_encode(x, comp, passes, name):
@@ -117,36 +141,56 @@ def check_encode(x, comp, passes, name):
     return u_k, c_k, float(err.max())
 
 
-def kernel_phase(seed: int):
-    """Each kernel against its plain version at the main path's shapes."""
-    import numpy as np
+def hsq_unit(cfg, seed: int):
+    """The HSQ unit of ``cfg``'s ResNet-50 plan."""
     import torch
-    import torch.nn.functional as F
 
     from gqx_torch.convert import leaf_paths
     from gqx_torch.models import create_model
-    from gqx_torch.ops import hsq as hsq_ops
-    from gqx_torch.ops import rand as rand_ops
     from gqx_torch.parallel.packing import plan_units
 
-    cfg = canonical_config()
     model = create_model("resnet50", 10, "bfloat16", torch.Generator().manual_seed(seed))
     plan = plan_units([(n, tuple(p.shape)) for n, p in model.named_parameters()],
                       leaf_paths(model), cfg)
     unit = plan.units[0]
     comp = unit.compressor
-    users, size, m, dim, k = cfg.num_users, unit.size, comp.M, comp.dim, comp.K
-    log(f"[unit] ResNet-50 HSQ unit: {len(unit.sizes)} leaves, {size} elements "
-        f"(pad {unit.pad}), M={m} subvectors of {dim}, K={k}, "
-        f"{comp.norm_compressor.n_segments} norm segments")
-    dev = torch.device("cuda")
+    log(f"[unit] ResNet-50 HSQ unit (c_dim {cfg.c_dim}, k_bit {cfg.k_bit}): "
+        f"{len(unit.sizes)} leaves, {unit.size} elements (pad {unit.pad}), "
+        f"M={comp.M} subvectors of {comp.dim}, K={comp.K}, "
+        f"{comp.norm_compressor.n_segments} norm segments, flat layout: {comp.flat_ok}")
+    return unit
+
+
+def unit_input(unit, users: int, seed: int):
+    """Gradient-like float32 (users, unit.size) on the card: per-leaf scales
+    spread over two decades, the pad zero as pack() makes it."""
+    import numpy as np
+    import torch
+
     rng = np.random.default_rng(seed)
-    # gradient-like input: per-leaf scales spread over two decades
-    x32 = torch.from_numpy(rng.standard_normal((users, size), dtype=np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((users, unit.size), dtype=np.float32)).cuda()
     scales = torch.from_numpy(10.0 ** rng.uniform(-4, -2, len(unit.sizes) + 1).astype(np.float32))
     lengths = torch.tensor(list(unit.sizes) + [unit.pad])
-    x32 *= torch.repeat_interleave(scales, lengths).to(dev)
-    x32[:, sum(unit.sizes):] = 0.0  # the pad is zero, as pack() makes it
+    x *= torch.repeat_interleave(scales, lengths).cuda()
+    x[:, sum(unit.sizes):] = 0.0
+    return x
+
+
+def kernel_phase(seed: int):
+    """Each flat-layout kernel (and the uniforms) against its plain version
+    at the canonical unit's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from gqx_torch.ops import hsq as hsq_ops
+    from gqx_torch.ops import rand as rand_ops
+
+    cfg = canonical_config()
+    unit = hsq_unit(cfg, seed)
+    comp = unit.compressor
+    users, size, m, dim, k = cfg.num_users, unit.size, comp.M, comp.dim, comp.K
+    dev = torch.device("cuda")
+    x32 = unit_input(unit, users, seed)
     xb = x32.to(torch.bfloat16)
     cb = comp.codebook(dev)
     entries = {}
@@ -220,14 +264,155 @@ def kernel_phase(seed: int):
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(lambda: F.embedding_bag(codes_t, cb, per_sample_weights=w_t,
                                                     mode="sum"), 20))
-    for e in entries.values():
-        log(f"[{e['name']}] {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms by {e['bound_by']}), "
-            f"plain {e['plain_ms']:.3f} ms, library {e['library_ms']}")
+    # K4 on the same signature: all users at once (the users' round trip with
+    # error feedback) and one user (the server's recompression, a ring hop)
+    err4 = 0.0
+    for passes in (1, 2):
+        for c, v in ((c_k, u_q), (c_k[0], u_q[0]), (c_k.to(torch.int32), u_q)):
+            d_k = hsq_ops.hsq_decode_flat(c, v, cb, dim, passes)
+            d_p = hsq_ops.hsq_decode_plain(c, v, cb, dim, passes)
+            torch.cuda.synchronize()
+            if d_k.shape != c.shape[:-1] + (size,) or not torch.equal(d_k, d_p):
+                raise AssertionError(
+                    f"hsq_decode passes={passes} {tuple(c.shape)} {c.dtype}: not bit-equal to "
+                    f"plain, max abs err {float((d_k - d_p).abs().max())}")
+            err4 = max(err4, float((d_k - d_p).abs().max()))
+            del d_k, d_p
+    log("[hsq_decode] bit-equal to plain at U=8 and U=1, uint8 and int32 codes, passes 1 and 2")
+    one_ms = cuda_ms(lambda: hsq_ops.hsq_decode_flat(c_k[0], u_q[0], cb, dim, 1), 20)
+    log(f"[hsq_decode U=1] {one_ms:.4f} ms")
+    codes_col = c_k.reshape(-1, 1).long()
+    w_col = u_q.to(torch.bfloat16).to(torch.float32).reshape(-1, 1)
+    b, by = bound(users * m * 5 + users * size * 4 + k * dim * 4, 1.0 * users * size, FP32_FLOPS)
+    entries["hsq_decode"] = dict(
+        name="hsq_decode", route="cuda", source="gqx_torch/csrc/hsq_decode.cu",
+        replaces="gqx/ops/pallas_hsq4.py:191, gqx/ops/pallas_hsq3.py:253",
+        max_abs_err=err4,
+        ms=cuda_ms(lambda: hsq_ops.hsq_decode_flat(c_k, u_q, cb, dim, 1), 20),
+        plain_ms=cuda_ms(lambda: hsq_ops.hsq_decode_plain(c_k, u_q, cb, dim, 1), 3),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(lambda: F.embedding_bag(codes_col, cb, per_sample_weights=w_col,
+                                                    mode="sum"), 5))
     return entries
 
 
-def run_steps(quantizer: str, seed: int, steps: int, count_fn=None):
-    """Build the canonical model and take 1 + ``steps`` steps; returns
+def check_rows_encode(rows, cb, code_dtype, name):
+    """Row-major kernel vs plain encode; returns (u, codes, max_abs_err).
+    The two sum the dim fp32 products in different orders: a code may
+    differ only where the top two |p| are within 1e-5 relative, and u may
+    differ by 1e-6 of the summed magnitudes |x| . |c|."""
+    import torch
+
+    from gqx_torch.ops import hsq_rows
+
+    u_k, c_k = hsq_rows.hsq_encode(rows, cb, code_dtype)
+    u_p, c_p = hsq_rows.hsq_encode_plain(rows, cb, code_dtype)
+    torch.cuda.synchronize()
+    flat = rows.reshape(-1, rows.shape[-1])
+    differ = (c_k != c_p).reshape(-1)
+    n_differ = int(differ.sum())
+    if n_differ:
+        top2 = (flat[differ] @ cb.t()).abs().topk(2, dim=1).values
+        worst = float(((top2[:, 0] - top2[:, 1]) / top2[:, 0].clamp_min(1e-30)).max())
+        if worst > 1e-5:
+            raise AssertionError(f"{name}: {n_differ} codes differ, top-2 margin up to {worst}")
+    same = ~differ
+    err = (u_k.reshape(-1) - u_p.reshape(-1)).abs()[same]
+    mag = torch.empty_like(u_p.reshape(-1))
+    for s0 in range(0, flat.shape[0], 1 << 20):   # |x| . |c[code]| per row, in blocks
+        blk = slice(s0, s0 + (1 << 20))
+        mag[blk] = (flat[blk].abs() * cb.abs()[c_p.reshape(-1)[blk].long()]).sum(1)
+    if not bool((err <= 1e-6 * mag[same] + 1e-30).all()):
+        raise AssertionError(f"{name}: u differs by up to {float(err.max())}")
+    log(f"[{name}] codes differing on near-ties: {n_differ} of {c_k.numel()}; "
+        f"max |u - u_plain| {float(err.max()):.3e}")
+    return u_k, c_k, float(err.max())
+
+
+def rows_kernel_phase(seed: int):
+    """The row-major encode and decode against their plain versions at the
+    shapes of P4's unit (8 users x 2.94M rows, dim 8, K=1024), then at a
+    ragged dim (24) and with a codebook larger than shared memory
+    (dim 16 x K 4096 = 256 KB)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from gqx_torch.codebooks import get_codebook
+    from gqx_torch.ops import hsq_rows
+
+    cfg = canonical_config(**PATHS["P4"][0])
+    unit = hsq_unit(cfg, seed)
+    comp = unit.compressor
+    users, m, dim, k = cfg.num_users, comp.M, comp.dim, comp.K
+    if comp.flat_ok or (dim, k) != (8, 1024):
+        raise AssertionError(f"P4's unit is dim {dim}, K {k}, flat layout {comp.flat_ok}")
+    dev = torch.device("cuda")
+    rows = unit_input(unit, users, seed + 1).reshape(users, m, dim)
+    cb = comp.codebook(dev)
+    entries = {}
+
+    u_k, c_k, err = check_rows_encode(rows, cb, comp.code_dtype, "hsq_rows_encode dim 8 K 1024")
+    b, by = bound(users * m * dim * 4 + users * m * 8 + k * dim * 4,
+                  2.0 * users * m * k * dim, FP32_FLOPS)
+    entries["hsq_rows_encode"] = dict(
+        name="hsq_rows_encode", route="cuda", source="gqx_torch/csrc/hsq_rows_encode.cu",
+        replaces="gqx/ops/pallas_hsq.py:53", max_abs_err=err,
+        ms=cuda_ms(lambda: hsq_rows.hsq_encode(rows, cb, comp.code_dtype), 5),
+        plain_ms=cuda_ms(lambda: hsq_rows.hsq_encode_plain(rows, cb, comp.code_dtype), 1),
+        bound_ms=b, bound_by=by, library_ms=None)
+
+    # decode on the signature the main path hands it: u dequantized
+    norm = comp.norm_compressor
+    u_q = norm.decompress(norm.compress(u_k, torch.Generator().manual_seed(seed))).contiguous()
+    del rows
+    d_k = hsq_rows.hsq_decode(c_k, u_q, cb)
+    d_p = hsq_rows.hsq_decode_plain(c_k, u_q, cb)
+    torch.cuda.synchronize()
+    if d_k.shape != (users, m, dim) or not torch.equal(d_k, d_p):
+        raise AssertionError("hsq_rows_decode: not bit-equal to plain, max abs err "
+                             f"{float((d_k - d_p).abs().max())}")
+    log("[hsq_rows_decode dim 8 K 1024] bit-equal to plain")
+    del d_k, d_p
+    codes_col = c_k.reshape(-1, 1).long()
+    w_col = u_q.reshape(-1, 1)
+    b, by = bound(users * m * 8 + users * m * dim * 4 + k * dim * 4,
+                  1.0 * users * m * dim, FP32_FLOPS)
+    entries["hsq_rows_decode"] = dict(
+        name="hsq_rows_decode", route="cuda", source="gqx_torch/csrc/hsq_rows_decode.cu",
+        replaces="gqx/ops/pallas_hsq.py:119", max_abs_err=0.0,
+        ms=cuda_ms(lambda: hsq_rows.hsq_decode(c_k, u_q, cb), 20),
+        plain_ms=cuda_ms(lambda: hsq_rows.hsq_decode_plain(c_k, u_q, cb), 3),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(lambda: F.embedding_bag(codes_col, cb, per_sample_weights=w_col,
+                                                    mode="sum"), 5))
+    del codes_col, w_col, u_k, c_k, u_q
+
+    # a ragged dim (register path, 24), one outside the register dims (36,
+    # rows in shared memory) and a codebook in several shared-memory tiles
+    rng = np.random.default_rng(seed + 2)
+    for d, kk, n in ((24, 256, 200_000), (36, 64, 50_000), (16, 4096, 200_000)):
+        cb_s = torch.from_numpy(get_codebook(d, kk)).to(dev)
+        rows_s = torch.from_numpy(rng.standard_normal((2, n, d), dtype=np.float32)).to(dev)
+        dt = torch.uint8 if kk <= 256 else torch.int32
+        name = f"hsq_rows_encode dim {d} K {kk}"
+        u_s, c_s, _ = check_rows_encode(rows_s, cb_s, dt, name)
+        if not torch.equal(hsq_rows.hsq_decode(c_s, u_s, cb_s),
+                           hsq_rows.hsq_decode_plain(c_s, u_s, cb_s)):
+            raise AssertionError(f"hsq_rows_decode dim {d} K {kk}: not bit-equal to plain")
+        log(f"[{name}] {cuda_ms(lambda: hsq_rows.hsq_encode(rows_s, cb_s, dt), 5):.4f} ms "
+            f"for {2 * n} rows; decode bit-equal to plain")
+    return entries
+
+
+def log_entries(entries):
+    for e in entries.values():
+        log(f"[{e['name']}] {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms by {e['bound_by']}), "
+            f"plain {e['plain_ms']:.3f} ms, library {e['library_ms']}")
+
+
+def run_steps(cfg, seed: int, steps: int, count_fn=None):
+    """Build ``cfg``'s model and take 1 + ``steps`` steps; returns
     (ms/step, losses, state, plan, step_fn, batch, launches)."""
     import numpy as np
     import torch
@@ -235,11 +420,15 @@ def run_steps(quantizer: str, seed: int, steps: int, count_fn=None):
     from gqx_torch.models import create_model
     from gqx_torch.train import create_train_state, make_train_step
 
-    cfg = canonical_config(quantizer)
     model = create_model(cfg.network, cfg.num_classes, cfg.compute_dtype,
                          torch.Generator().manual_seed(seed))
     state, plan = create_train_state(cfg, model, device="cuda")
-    step = make_train_step(cfg, plan)
+    train_step = make_train_step(cfg, plan)
+    scale = cfg.ef_scale(EF_EPOCH)
+
+    def step(state, x, y, lr, wd, gen):
+        return train_step(state, x, y, lr, wd, gen, scale)
+
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     x = torch.from_numpy(rng.standard_normal(
@@ -257,27 +446,30 @@ def run_steps(quantizer: str, seed: int, steps: int, count_fn=None):
     ms = (time.perf_counter() - t0) / steps * 1e3
     launches = count_fn() if count_fn is not None else None
     losses += [float(v) for v in out]
+    what = f"{cfg.quantizer} {cfg.mode}"
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"{quantizer}: non-finite loss {losses}")
+        raise AssertionError(f"{what}: non-finite loss {losses}")
     changed = sum(int(not torch.equal(before[n], p)) for n, p in model.named_parameters())
     if changed != len(before):
-        raise AssertionError(f"{quantizer}: only {changed} of {len(before)} parameters changed")
+        raise AssertionError(f"{what}: only {changed} of {len(before)} parameters changed")
     finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
     if not finite:
-        raise AssertionError(f"{quantizer}: non-finite parameters")
+        raise AssertionError(f"{what}: non-finite parameters")
     return ms, losses, state, plan, step, (x, y, gen), launches
 
 
 def counters(reset=False):
     from gqx_torch.ops import hsq as hsq_ops
+    from gqx_torch.ops import hsq_rows
     from gqx_torch.ops import rand as rand_ops
 
     if reset:
-        for key in hsq_ops.launches:
-            hsq_ops.launches[key] = 0
+        for table in (hsq_ops.launches, hsq_rows.launches):
+            for key in table:
+                table[key] = 0
         rand_ops.launches = 0
         return None
-    return {**hsq_ops.launches, "philox_uniform": rand_ops.launches}
+    return {**hsq_ops.launches, **hsq_rows.launches, "philox_uniform": rand_ops.launches}
 
 
 def device_profile(state, step, batch, ms_step):
@@ -363,10 +555,84 @@ def breakdown_and_reference(state, plan, step, batch, seed, ms_step):
                 raise AssertionError("identity aggregate differs from the CPU path")
 
 
+def _subvectors_off(got, want, dim: int) -> int:
+    """How many dim-wide subvectors of ``got`` differ from ``want`` by more
+    than 1e-5 of the subvector's largest magnitude."""
+    err = (got - want).abs().reshape(-1, dim).amax(1)
+    return int((err > 1e-5 * want.abs().reshape(-1, dim).amax(1)).sum())
+
+
+def aggregate_reference(name, cfg, state, plan, step, batch, seed, ms_step):
+    """One more step's gradients aggregated on the card, stage-timed (host
+    clock, synchronised per stage), and, from the same gradients, the same
+    aggregator state and the same seed, on the CPU, where every wrapper
+    computes its plain version.  HSQ units (aggregate and new error-feedback
+    state) may differ only on a few subvectors (near-tie codes, level
+    boundaries, at most 1e-3 of them); identity units must agree to 1e-6 of
+    the summed magnitudes."""
+    import torch
+
+    from gqx_torch.parallel.aggregate import AggState, make_aggregator
+    from gqx_torch.parallel.packing import UnitPlan
+    from gqx_torch.train import user_grads
+
+    x, y, _ = batch
+    times = {}
+    # the same units without the bf16 cast of pack(), to compare in float32
+    f32_plan = UnitPlan(plan.names, plan.leaf_shapes, plan.units, layout=plan.layout)
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[label] = round((time.perf_counter() - t0) * 1e3, 3)
+        return out
+
+    def to_cpu(group):
+        return None if group is None else [t.cpu().clone() for t in group]
+
+    aggregator = make_aggregator(cfg, plan)
+    scale = cfg.ef_scale(EF_EPOCH)
+    _, grads = timed("user_fwd_bwd", lambda: user_grads(state.model, plan.names, x, y))
+    cpu_state = AggState(to_cpu(state.agg_state.ef), to_cpu(state.agg_state.server_ef))
+    cpu_grads = {n: g.cpu() for n, g in grads.items()}
+    agg = timed("aggregate", lambda: aggregator(
+        grads, state.agg_state, scale, torch.Generator().manual_seed(seed)))
+    log(f"[breakdown {name}] ms (host clock, synchronised per stage): {json.dumps(times)}")
+    want = aggregator(cpu_grads, cpu_state, scale, torch.Generator().manual_seed(seed))
+
+    groups = [("aggregate", f32_plan.pack(agg), f32_plan.pack(want))]
+    if state.agg_state.ef is not None:
+        groups.append(("error feedback", state.agg_state.ef, cpu_state.ef))
+    if state.agg_state.server_ef is not None:
+        groups.append(("server error feedback", state.agg_state.server_ef, cpu_state.server_ef))
+    for label, got_units, want_units in groups:
+        for u, got, ref, g in zip(plan.units, got_units, want_units, f32_plan.pack(cpu_grads)):
+            comp = u.compressor
+            got, ref = got.cpu().float(), ref.float()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{name} {label}: non-finite values")
+            if type(comp).__name__ == "HSQCompressor":
+                bad, total = _subvectors_off(got, ref, comp.dim), got.numel() // comp.dim
+                log(f"[reference {name}] {label}, HSQ unit of {u.size}: {bad} of {total} "
+                    "subvectors differ from the CPU plain path")
+                if bad > 1e-3 * total:
+                    raise AssertionError(f"{name} {label}: {bad} subvectors differ")
+            else:
+                err = (got - ref).abs()
+                tol = 1e-6 * g.float().abs().sum(0) + 1e-30
+                log(f"[reference {name}] {label}, identity unit of {u.size}: "
+                    f"max |gpu - cpu| {float(err.max()):.3e}")
+                if not bool((err <= tol).all()):
+                    raise AssertionError(f"{name} {label}: identity unit differs from the CPU path")
+    device_profile(state, step, batch, ms_step)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
 
     import torch
@@ -384,26 +650,47 @@ def main():
     log(f"[build] nvcc, {len(_build.SOURCES)} sources in parallel: {build_s:.1f} s")
 
     entries = kernel_phase(args.seed)
-
-    ms_hsq, losses, state, plan, step, batch, launches = run_steps(
-        "hsq", args.seed, args.steps, counters)
-    log(f"[slice] resnet50 8x32 hsq bf16: {ms_hsq:.2f} ms/step over {args.steps} steps, "
-        f"losses {[round(v, 4) for v in losses]}, wire {plan.wire_bytes()} B/user/step")
-    log(f"[slice] launches on the main path: {launches}")
-    hsq_units = sum(1 for u in plan.units if type(u.compressor).__name__ == "HSQCompressor")
-    for name, count in launches.items():
-        if count != args.steps * hsq_units:
-            raise AssertionError(f"{name} launched {count} times in {args.steps} steps")
-        entries[name]["launches"] = count
-    breakdown_and_reference(state, plan, step, batch, args.seed, ms_hsq)
-    del state
     torch.cuda.empty_cache()
+    entries.update(rows_kernel_phase(args.seed))
+    torch.cuda.empty_cache()
+    log_entries(entries)
+    for e in entries.values():
+        e["launches"], e["launches_by_path"] = 0, {}
 
-    ms_sgd, sgd_losses, _, sgd_plan, _, _, _ = run_steps("sgd", args.seed, args.steps)
-    log(f"[slice] resnet50 8x32 sgd (fp32 wire) bf16: {ms_sgd:.2f} ms/step, "
+    for name, (extra, per_step) in PATHS.items():
+        cfg = canonical_config(**extra)
+        ms, losses, state, plan, step, batch, launches = run_steps(
+            cfg, args.seed, args.steps, counters)
+        log(f"[slice {name}] resnet50 8x32 hsq {extra or 'canonical'} bf16: {ms:.2f} ms/step "
+            f"over {args.steps} steps, losses {[round(v, 4) for v in losses]}, "
+            f"wire {plan.wire_bytes()} B/user/step")
+        log(f"[slice {name}] launches: {launches}")
+        hsq_units = sum(1 for u in plan.units if type(u.compressor).__name__ == "HSQCompressor")
+        for kernel, count in launches.items():
+            n = per_step.get(kernel, 0)
+            want = args.steps * hsq_units * (cfg.num_users if n == "U" else n)
+            if count != want:
+                raise AssertionError(f"{name}: {kernel} launched {count} times in "
+                                     f"{args.steps} steps, expected {want}")
+            entries[kernel]["launches"] += count
+            entries[kernel]["launches_by_path"][name] = count
+        if name == "P1":
+            breakdown_and_reference(state, plan, step, batch, args.seed, ms)
+        else:
+            aggregate_reference(name, cfg, state, plan, step, batch, args.seed, ms)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    for e in entries.values():
+        if e["launches"] < 1:
+            raise AssertionError(f"{e['name']} was launched on no path")
+
+    sgd_cfg = canonical_config("sgd")
+    ms_sgd, sgd_losses, _, sgd_plan, _, _, _ = run_steps(sgd_cfg, args.seed, args.steps)
+    log(f"[slice sgd] resnet50 8x32 sgd (fp32 wire) bf16: {ms_sgd:.2f} ms/step, "
         f"losses {[round(v, 4) for v in sgd_losses]}, wire {sgd_plan.wire_bytes()} B/user/step")
 
-    order = ("hsq_encode", "hsq_decode_mean", "philox_uniform")
+    order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
+             "hsq_rows_encode", "hsq_rows_decode")
     print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,13 +32,21 @@ class Compressor:
     def decompress(self, sig: Sig) -> torch.Tensor:
         raise NotImplementedError
 
+    def roundtrip(self, vec: torch.Tensor, generator=None) -> torch.Tensor:
+        """compress -> decompress (the value the aggregators use)."""
+        return self.decompress(self.compress(vec, generator))
+
     # -- batched (stacked-users) API -----------------------------------------
     def compress_batch(self, vecs: torch.Tensor, generator=None) -> Sig:
         """vecs (U, *shape) -> signature with a leading U axis per leaf."""
         raise NotImplementedError
 
     def decompress_batch(self, sig: Sig) -> torch.Tensor:
+        """Signature with a leading U axis -> (U, *shape)."""
         raise NotImplementedError
+
+    def roundtrip_batch(self, vecs: torch.Tensor, generator=None) -> torch.Tensor:
+        return self.decompress_batch(self.compress_batch(vecs, generator))
 
     def decode_mean(self, sig: Sig) -> torch.Tensor:
         """Mean over users of the decompressed signatures — the PS server

@@ -165,6 +165,10 @@ class ProbabilisticScalarCompressor(Compressor):
         span = upper - lower
         return sig["l"].to(torch.float32) * span / self.s + lower
 
+    # both work on the last axis, so a users axis needs nothing more
+    compress_batch = compress
+    decompress_batch = decompress
+
     @property
     def wire_bits(self) -> int:
         return 2 * 32 * self.n_segments + self.n_bit * self.size

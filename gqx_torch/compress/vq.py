@@ -6,9 +6,12 @@ rows; p = rows @ codebook^T; code and signed scale u by the TPU kernel's
 selection; u is then quantized by the min/max scalar quantizer.
 decompress (its :80-90): codebook[code] * u.
 
-The port always runs the configuration gqx runs with ``use_pallas=True``:
-the bf16-exact codebook and the kernels' arithmetic (``gqx_torch.ops.hsq``).
-Signatures are m-order: codes (U, M), u the norm quantizer's signature.
+The port always runs the configuration gqx runs with ``use_pallas=True``.
+Inside the flat-layout kernels' envelope (``supports_flat(dim, K)``) that is
+the bf16-exact codebook and the arithmetic of ``gqx_torch.ops.hsq``; outside
+it (a large K, a ragged dim) it is the raw float32 codebook and the
+row-major kernels of ``gqx_torch.ops.hsq_rows``, as in gqx.  Signatures are
+m-order: codes (U, M), u the norm quantizer's signature.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from gqx_torch.codebooks import get_codebook, orthonormal_codebook
 from gqx_torch.compress.api import Compressor, Sig, code_dtype, subvector_dim
 from gqx_torch.compress.scalar import ProbabilisticScalarCompressor
 from gqx_torch.ops import hsq as hsq_ops
+from gqx_torch.ops import hsq_rows
 from gqx_torch.ops.hsq_prep import bf16_exact_codebook, supports_flat
 
 
@@ -53,11 +57,9 @@ class HSQCompressor(Compressor):
         self.K = 2 ** self.k_bit if self.k_bit > 0 else self.dim
         self.M = size // self.dim
         self.random = bool(random)
-        if not supports_flat(self.dim, self.K):
-            # gqx takes its row-major kernel (pallas_hsq.py, K6) here
-            raise NotImplementedError(
-                f"HSQ with dim={self.dim}, K={self.K} needs the row-major "
-                "kernel, which is not ported yet (ROADMAP Queue 2, K6)")
+        # False: the row-major kernels and the raw codebook (gqx/compress/
+        # vq.py:99-105)
+        self.flat_ok = supports_flat(self.dim, self.K)
 
         if codebook is None:
             if self.K == self.dim:
@@ -66,7 +68,9 @@ class HSQCompressor(Compressor):
                 codebook = get_codebook(self.dim, self.K)
         if codebook.shape != (self.K, self.dim):
             raise ValueError(f"codebook shape {codebook.shape} != {(self.K, self.dim)}")
-        self.codewords = torch.from_numpy(bf16_exact_codebook(codebook))
+        codebook = np.ascontiguousarray(codebook, dtype=np.float32)
+        self.codewords = torch.from_numpy(
+            bf16_exact_codebook(codebook) if self.flat_ok else codebook)
         self._codewords_on: Dict[torch.device, torch.Tensor] = {}
 
         self.compressed_norm = self.n_bit != 32
@@ -80,7 +84,8 @@ class HSQCompressor(Compressor):
         )
 
     def codebook(self, device) -> torch.Tensor:
-        """The bf16-exact (K, dim) float32 codebook on ``device``."""
+        """The (K, dim) float32 codebook on ``device``: bf16-exact when
+        ``flat_ok``, raw otherwise."""
         device = torch.device(device)
         cb = self._codewords_on.get(device)
         if cb is None:
@@ -104,9 +109,13 @@ class HSQCompressor(Compressor):
         """vecs (U, size) -> {"codes": (U, M), "u": norm signature}; one
         encode launch and one uniform launch cover every user."""
         users = vecs.shape[0]
-        x = self._enc_input(vecs.reshape(users, -1))
-        u, codes = hsq_ops.hsq_encode_flat(
-            x, self.codebook(x.device), self.dim, self.passes, self.code_dtype)
+        if self.flat_ok:
+            x = self._enc_input(vecs.reshape(users, -1))
+            u, codes = hsq_ops.hsq_encode_flat(
+                x, self.codebook(x.device), self.dim, self.passes, self.code_dtype)
+        else:
+            rows = vecs.reshape(users, self.M, self.dim).to(torch.float32).contiguous()
+            u, codes = hsq_rows.hsq_encode(rows, self.codebook(rows.device), self.code_dtype)
         sig: Sig = {"codes": codes}
         sig["u"] = self.norm_compressor.compress(u, generator) if self.compressed_norm else u
         return sig
@@ -121,21 +130,26 @@ class HSQCompressor(Compressor):
             return self.norm_compressor.decompress(sig["u"])
         return sig["u"]
 
+    def _decode(self, sig: Sig) -> torch.Tensor:
+        """codes/u (..., M) -> (..., size), one launch for every user."""
+        codes, u = sig["codes"].contiguous(), self._u(sig).contiguous()
+        if self.flat_ok:
+            return hsq_ops.hsq_decode_flat(codes, u, self.codebook(u.device),
+                                           self.dim, self.passes)
+        rows = hsq_rows.hsq_decode(codes, u, self.codebook(u.device))
+        return rows.reshape(codes.shape[:-1] + (self.size,))
+
     def decompress(self, sig: Sig) -> torch.Tensor:
-        """Plain decode of one user's signature (gqx's kernel for it, K4,
-        is not ported yet)."""
-        u = self._u(sig)
-        return hsq_ops.hsq_decode_plain(
-            sig["codes"], u, self.codebook(u.device), self.dim, self.passes,
-        ).reshape(self.shape)
+        return self._decode(sig).reshape(self.shape)
 
     def decompress_batch(self, sig: Sig) -> torch.Tensor:
-        raise NotImplementedError(
-            "HSQ decompress_batch needs the per-user decode kernel, which is "
-            "not ported yet (ROADMAP Queue 2, K4)")
+        return self._decode(sig).reshape((sig["codes"].shape[0],) + self.shape)
 
     def decode_mean(self, sig: Sig) -> torch.Tensor:
-        """Fused PS server reduce: the U users' signatures decoded once."""
+        """PS server reduce.  Flat layout: the fused kernel decodes the U
+        users' signatures once.  Row-major: per-user decode, then the mean."""
+        if not self.flat_ok:
+            return super().decode_mean(sig)
         u = self._u(sig).contiguous()
         return hsq_ops.hsq_decode_mean(
             sig["codes"].contiguous(), u, self.codebook(u.device), self.dim,

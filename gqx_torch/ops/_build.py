@@ -3,8 +3,9 @@
 Each ``gqx_torch/csrc/<name>.cu`` has a plain C interface and compiles in
 seconds into its own shared library under ``gqx_torch/_build/`` (listed in
 .gitignore), at first use.  A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt.  ``build()`` starts one
-nvcc per source, all at once.
+source, of the headers beside it (``csrc/*.cuh``) and of the flags, so an
+edited source is rebuilt.  ``build()`` starts one nvcc per source, all at
+once.
 
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
@@ -15,6 +16,7 @@ reports it.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -28,7 +30,8 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("hsq_encode", "hsq_decode_mean", "philox_uniform")
+SOURCES = ("hsq_encode", "hsq_decode_mean", "philox_uniform",
+           "hsq_decode", "hsq_rows_encode", "hsq_rows_decode")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -47,8 +50,12 @@ def _nvcc() -> str:
 
 def _target(name: str):
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + headers:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 

@@ -1,16 +1,18 @@
-"""HSQ encode and fused decode-mean (counterpart of ``gqx/ops/pallas_hsq4.py``).
+"""HSQ encode, per-user decode and fused decode-mean (counterpart of
+``gqx/ops/pallas_hsq4.py`` and of its v3 generation ``pallas_hsq3.py``,
+which computes the same three functions).
 
 Each function has a wrapper and a plain PyTorch version.  The wrapper
 computes the plain version for CPU tensors and launches the CUDA kernel
-(``csrc/hsq_encode.cu``, ``csrc/hsq_decode_mean.cu``) for CUDA tensors;
-there is no fallback from one to the other.  The m-order signature layout
-is used throughout: codes and u are (U, M), row m of user i holds the
-subvector ``flat[i, m*dim:(m+1)*dim]``.
+(``csrc/hsq_encode.cu``, ``csrc/hsq_decode.cu``, ``csrc/hsq_decode_mean.cu``)
+for CUDA tensors; there is no fallback from one to the other.  The m-order
+signature layout is used throughout: codes and u are (U, M), row m of user
+i holds the subvector ``flat[i, m*dim:(m+1)*dim]``.
 
 The arithmetic is the TPU kernels' (see the notes in the CUDA sources):
 inputs rounded per ``passes``, a bf16-exact codebook, the ``pos >= -neg``
-selection with first-index ties, and the bf16-rounded per-code weights of
-the decode-mean.
+selection with first-index ties, the bf16-rounded scale of the decode and
+the bf16-rounded per-code weights of the decode-mean.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from gqx_torch.ops import _build
 from gqx_torch.ops.hsq_prep import bf16_round
 
 #: launches of each CUDA kernel (not of the plain versions)
-launches = {"hsq_encode": 0, "hsq_decode_mean": 0}
+launches = {"hsq_encode": 0, "hsq_decode_mean": 0, "hsq_decode": 0}
 
 KERNEL_DIMS = (4, 8, 16, 32)
 MAX_SMEM = 227 * 1024          # dynamic shared memory one block may use
@@ -41,6 +43,24 @@ def _check_codebook(codebook, dim, device):
     if codebook.numel() * 4 > MAX_SMEM:
         raise NotImplementedError(
             f"codebook of {codebook.numel() * 4} bytes exceeds shared memory")
+
+
+def check_signature(what: str, codes, u, codebook, dim):
+    """Raise unless codes (uint8/int32) and u (float32) are contiguous, of
+    one shape and on one device with the (K, dim) float32 codebook."""
+    if codes.dtype not in (torch.uint8, torch.int32) or not codes.is_contiguous():
+        raise ValueError(f"{what}: codes must be contiguous uint8/int32, got {codes.dtype}")
+    if u.dtype != torch.float32 or not u.is_contiguous() or u.shape != codes.shape:
+        raise ValueError(f"{what}: u must be contiguous float32 shaped like codes")
+    if u.device != codes.device:
+        raise ValueError(f"{what}: codes on {codes.device}, u on {u.device}")
+    if codebook.dtype != torch.float32 or codebook.dim() != 2 or codebook.shape[1] != dim:
+        raise ValueError(f"{what}: codebook must be (K, {dim}) float32, got "
+                         f"{tuple(codebook.shape)} {codebook.dtype}")
+    if codebook.device != u.device or not codebook.is_contiguous():
+        raise ValueError(f"{what}: codebook must be contiguous on the input's device")
+    if codes.dtype == torch.uint8 and codebook.shape[0] > 256:
+        raise ValueError(f"{what}: {codebook.shape[0]} codewords do not fit uint8 codes")
 
 
 # -- encode -----------------------------------------------------------------
@@ -149,12 +169,9 @@ def hsq_decode_mean_plain(codes: torch.Tensor, u: torch.Tensor,
 
 
 def _decode_mean_kernel(codes, u, codebook, dim, passes):
-    if codes.dtype not in (torch.uint8, torch.int32) or not codes.is_contiguous():
-        raise ValueError(f"hsq_decode_mean: codes must be contiguous uint8/int32, got {codes.dtype}")
-    if u.dtype != torch.float32 or not u.is_contiguous() or u.shape != codes.shape:
-        raise ValueError("hsq_decode_mean: u must be contiguous float32 shaped like codes")
-    if u.device != codes.device or codes.dim() != 2:
-        raise ValueError("hsq_decode_mean: codes and u must be (U, M) on one device")
+    check_signature("hsq_decode_mean", codes, u, codebook, dim)
+    if codes.dim() != 2:
+        raise ValueError(f"hsq_decode_mean: codes must be (U, M), got {tuple(codes.shape)}")
     if passes not in (1, 2):
         raise ValueError(f"hsq_decode_mean: passes must be 1 or 2, got {passes}")
     _check_codebook(codebook, dim, u.device)
@@ -187,12 +204,11 @@ def hsq_decode_mean(codes: torch.Tensor, u: torch.Tensor, codebook: torch.Tensor
     return _decode_mean_kernel(codes, u, codebook, dim, passes)
 
 
+# -- per-user decode ----------------------------------------------------------
+
 def hsq_decode_plain(codes: torch.Tensor, u: torch.Tensor, codebook: torch.Tensor,
                      dim: int, passes: int = 2) -> torch.Tensor:
-    """Per-user decode u * codebook[code] with the TPU decode's rounding of u
-    (bf16 at passes=1, bf16 hi + lo at passes=2): (..., M) -> (..., M*dim).
-    gqx's kernel for it (pallas_hsq4.hsq_decode_flat) is not ported yet, so
-    this plain version serves every device."""
+    """The plain version: codes/u (..., M) -> (..., M*dim) float32."""
     cb = codebook.to(device=u.device, dtype=torch.float32)
     rows = cb[codes.long()]
     uh = bf16_round(u.to(torch.float32))
@@ -200,3 +216,39 @@ def hsq_decode_plain(codes: torch.Tensor, u: torch.Tensor, codebook: torch.Tenso
     if passes == 2:
         out = out + rows * bf16_round(u - uh)[..., None]
     return out.reshape(codes.shape[:-1] + (codes.shape[-1] * dim,))
+
+
+def _decode_kernel(codes, u, codebook, dim, passes):
+    check_signature("hsq_decode", codes, u, codebook, dim)
+    if codes.dim() not in (1, 2):
+        raise ValueError(f"hsq_decode: codes must be (U, M) or (M,), got {tuple(codes.shape)}")
+    if passes not in (1, 2):
+        raise ValueError(f"hsq_decode: passes must be 1 or 2, got {passes}")
+    out = torch.empty(codes.shape[:-1] + (codes.shape[-1] * dim,),
+                      dtype=torch.float32, device=u.device)
+    lib = _build.load("hsq_decode")
+    fn = lib.gqx_hsq_decode
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(codes.data_ptr(), int(codes.dtype == torch.uint8), u.data_ptr(),
+             codebook.data_ptr(), dim, codes.numel(), passes, out.data_ptr(),
+             _build.stream_ptr(u.device))
+    _build.check(lib, err, "hsq_decode")
+    launches["hsq_decode"] += 1
+    return out
+
+
+def hsq_decode_flat(codes: torch.Tensor, u: torch.Tensor, codebook: torch.Tensor,
+                    dim: int, passes: int = 2) -> torch.Tensor:
+    """Per-user decode ``w(u) * codebook[code]`` with the TPU decode's rounding
+    of the scale: w = bf16(u) at passes=1, bf16 hi + lo in two products at
+    passes=2.  codes/u (U, M) or (M,) -> (U, M*dim) / (M*dim,) float32; codes
+    must be < K.  With the bf16-exact codebook every product is exact, so the
+    kernel and the plain version are bit-equal."""
+    if u.device.type == "cpu":
+        return hsq_decode_plain(codes, u, codebook, dim, passes)
+    if u.device.type != "cuda":
+        raise ValueError(f"hsq_decode: unsupported device {u.device}")
+    return _decode_kernel(codes, u, codebook, dim, passes)

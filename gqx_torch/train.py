@@ -2,14 +2,15 @@
 
 One step, as the reference's ``one_iter`` (its main.py:216-233) runs it:
 per-user forward/backward on each user's micro-batch, the users' gradients
-packed into compression units, PS aggregation (HSQ encode, norm
-quantization, fused decode-mean), then SGD with momentum and weight decay
-applied to the aggregated gradient.  The per-user gradients come from a
+packed into compression units, PS or chain-ring aggregation (HSQ encode,
+norm quantization, decode; optionally error feedback and the two-phase
+downlink), then SGD with momentum and weight decay applied to the
+aggregated gradient.  The per-user gradients come from a
 loop over users, one forward/backward each; gqx's folded-users trick is a
 faster route to the same values and is not ported yet.
 
-The step updates the model, the momentum trace and the BN running
-statistics in place.
+The step updates the model, the momentum trace, the aggregator's
+error-feedback state and the BN running statistics in place.
 
 Optimizer parity: torch ``optim.SGD(lr, momentum, weight_decay)`` ==
 t' = (g + wd*p) + momentum*t; p' = p - lr*t' (``fused_sgd_update``).
@@ -28,7 +29,7 @@ from gqx_torch import resolve_device
 from gqx_torch.config import resolve_schedule
 from gqx_torch.convert import leaf_paths
 from gqx_torch.models.common import clear_batch_stats, update_running_stats
-from gqx_torch.parallel.aggregate import init_state, make_aggregator
+from gqx_torch.parallel.aggregate import AggState, init_state, make_aggregator
 from gqx_torch.parallel.packing import UnitPlan, plan_units
 
 
@@ -36,12 +37,14 @@ from gqx_torch.parallel.packing import UnitPlan, plan_units
 class TrainState:
     model: nn.Module
     trace: Dict[str, torch.Tensor]   # momentum trace per parameter name
+    agg_state: AggState = dataclasses.field(default_factory=AggState)
     step: int = 0
 
 
 def create_train_state(config, model: nn.Module, device="cuda") -> Tuple[TrainState, UnitPlan]:
     """Move ``model`` to ``device``, build the compression unit plan (in
-    gqx's leaf order) and zero momentum.  Returns (state, plan).
+    gqx's leaf order), zero momentum and zero error-feedback state.  Returns
+    (state, plan).
 
     On a CUDA device with float32 compute, TF32 is switched off for cuDNN
     convolutions and cuBLAS matmuls (process-wide flags), so float32 means
@@ -56,8 +59,8 @@ def create_train_state(config, model: nn.Module, device="cuda") -> Tuple[TrainSt
     plan = plan_units([(n, tuple(p.shape)) for n, p in params.items()],
                       leaf_paths(model), config)
     trace = {n: torch.zeros_like(p) for n, p in params.items()}
-    init_state(plan, config.num_users, config.ef, config.two_phase)
-    return TrainState(model, trace), plan
+    agg_state = init_state(plan, config.num_users, config.ef, config.two_phase, dev)
+    return TrainState(model, trace, agg_state), plan
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -101,21 +104,23 @@ def user_grads(model: nn.Module, names, x: torch.Tensor, y: torch.Tensor):
 
 
 def make_train_step(config, plan: UnitPlan) -> Callable:
-    """step(state, x (U, B, C, H, W), y (U, B), lr, wd, generator) -> mean
-    loss.  ``generator`` (a CPU ``torch.Generator``) seeds the norm
-    quantizer's stochastic rounding; it may be None with ``random=False``."""
+    """step(state, x (U, B, C, H, W), y (U, B), lr, wd, generator, scale=1.0)
+    -> mean loss.  ``generator`` (a CPU ``torch.Generator``) seeds the norm
+    quantizer's stochastic rounding; it may be None with ``random=False``.
+    ``scale`` multiplies the error-feedback error before it is added to the
+    gradient (``config.ef_scale(epoch)``); it is unused without EF."""
     aggregator = make_aggregator(config, plan)
     momentum = resolve_schedule(config)[4]
 
     def train_step(state: TrainState, x, y, lr: float, wd: float,
-                   generator: Optional[torch.Generator]):
+                   generator: Optional[torch.Generator], scale: float = 1.0):
         model = state.model
         dev = next(model.parameters()).device
         if x.device != dev or y.device != dev:
             raise ValueError(f"batch on {x.device}/{y.device}, model on {dev}")
         clear_batch_stats(model)
         losses, grads = user_grads(model, plan.names, x, y)
-        agg = aggregator(grads, generator)
+        agg = aggregator(grads, state.agg_state, scale, generator)
         fused_sgd_update(agg, dict(model.named_parameters()), state.trace,
                          lr, wd, momentum)
         update_running_stats(model)

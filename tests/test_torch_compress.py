@@ -91,6 +91,9 @@ def test_norm_levels_equal_mordered_gqx(rng):
     np.testing.assert_array_equal(got["upper"].numpy(), np.asarray(want["upper"]))
     dec_want = jax.vmap(GqxScalar(m, (m,), 6, random=False, segment_sizes=segs).decompress)(want)
     np.testing.assert_array_equal(port.decompress(got).numpy(), np.asarray(dec_want))
+    # the users axis is the leading axis of the same calls
+    assert torch.equal(port.roundtrip_batch(torch.from_numpy(u)), port.decompress(got))
+    assert torch.equal(port.roundtrip(torch.from_numpy(u[1])), port.decompress(got)[1])
 
 
 def test_norm_levels_equal_transposed_gqx(rng):
@@ -214,5 +217,8 @@ def test_unported_compressors_raise():
     for name in ("qsgd", "terngrad", "sign", "topk", "pvq", "residual", "maurey"):
         with pytest.raises(NotImplementedError):
             make_compressor(name, 4096, (4096,), cfg)
-    with pytest.raises(NotImplementedError):
-        make_compressor("hsq", 4104, (4104,), GQConfig(quantizer="hsq", c_dim=16))  # dim 24
+    # a ragged size (dim 24) and a large codebook take the row-major kernels
+    ragged = make_compressor("hsq", 4104, (4104,), GQConfig(quantizer="hsq", c_dim=16))
+    assert ragged.dim == 24 and not ragged.flat_ok
+    large = make_compressor("hsq", 4096, (4096,), GQConfig(quantizer="hsq", c_dim=8, k_bit=10))
+    assert large.K == 1024 and not large.flat_ok and large.code_dtype == torch.int32

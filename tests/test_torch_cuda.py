@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from gqx_torch.ops import hsq as hsq_ops
+from gqx_torch.ops import hsq_rows
 from gqx_torch.ops import rand as rand_ops
 from gqx_torch.ops.hsq_prep import bf16_exact_codebook
 
@@ -101,3 +102,126 @@ def test_cuda_small_norm_draw_launches_philox(cuda_device):
     assert inc.device.type == "cuda"
     want = stochastic_increment(scaled.cpu(), floored.cpu(), torch.Generator().manual_seed(3))
     assert torch.equal(inc.cpu(), want)
+
+
+# -- per-user decode and the row-major kernels -------------------------------
+
+@pytest.mark.parametrize("passes", [1, 2])
+def test_cuda_decode_bit_equal_to_plain(cuda_device, passes):
+    cb = torch.from_numpy(_codebook(2, 256, 16)).to(cuda_device)
+    rng = np.random.default_rng(3)
+    for shape in ((3, 5001), (5001,)):
+        codes = torch.from_numpy(rng.integers(0, 256, shape).astype(np.int32)).to(cuda_device)
+        u = torch.from_numpy((rng.standard_normal(shape) * 10.0 ** rng.uniform(-4, 2, shape))
+                             .astype(np.float32)).to(cuda_device)
+        for c in (codes, codes.to(torch.uint8)):
+            before = hsq_ops.launches["hsq_decode"]
+            out = hsq_ops.hsq_decode_flat(c, u, cb, 16, passes)
+            assert hsq_ops.launches["hsq_decode"] == before + 1
+            assert out.shape == shape[:-1] + (5001 * 16,)
+            assert torch.equal(out, hsq_ops.hsq_decode_plain(c, u, cb, 16, passes))
+            assert hsq_ops.launches["hsq_decode"] == before + 1   # plain launches nothing
+
+
+def _near_tie_only(rows, cb, c_kernel, c_plain):
+    """Codes may differ only where the top two |p| are within 1e-5 relative."""
+    differ = (c_kernel != c_plain).reshape(-1)
+    if bool(differ.any()):
+        p = (rows.reshape(-1, rows.shape[-1])[differ].double() @ cb.double().t()).abs()
+        top = p.topk(2, dim=1).values
+        assert float(((top[:, 0] - top[:, 1]) / top[:, 0].clamp_min(1e-30)).max()) <= 1e-5
+    return ~differ
+
+
+@pytest.mark.parametrize("dim,k", [(8, 1024), (24, 64), (36, 100), (16, 4096), (5, 7)])
+def test_cuda_rows_kernels_match_plain(cuda_device, dim, k):
+    """Register path (8, 24), shared-memory path (36, 5), a codebook in
+    several shared-memory tiles (16 x 4096 = 256 KB)."""
+    rng = np.random.default_rng(dim * k)
+    cb_np = rng.standard_normal((k, dim)).astype(np.float32)
+    cb_np /= np.linalg.norm(cb_np, axis=1, keepdims=True)
+    cb_np[0] = -cb_np[1]                      # a +v/-v pair: the first index wins
+    cb = torch.from_numpy(cb_np).to(cuda_device)
+    rows_np = rng.standard_normal((2, 3001, dim)).astype(np.float32)
+    rows_np[:, 0] = 0.0                       # zero row: code 0, u 0
+    rows_np[:, 1] = 3.0 * cb_np[1]            # p0 = -3|c|^2, p1 = +3|c|^2: code 0, u < 0
+    rows = torch.from_numpy(rows_np).to(cuda_device)
+    code_dtype = torch.uint8 if k <= 256 else torch.int32
+    before = dict(hsq_rows.launches)
+    u, c = hsq_rows.hsq_encode(rows, cb, code_dtype)
+    up, cp = hsq_rows.hsq_encode_plain(rows, cb, code_dtype)
+    assert c.dtype == code_dtype and u.shape == c.shape == (2, 3001)
+    assert bool((c[:, :2] == 0).all()) and bool((u[:, 0] == 0).all()) and bool((u[:, 1] < 0).all())
+    same = _near_tie_only(rows, cb, c, cp).reshape(c.shape)
+    mag = (rows.abs() @ cb.abs().t()).gather(2, cp.long()[..., None])[..., 0]
+    assert bool(((u - up).abs()[same] <= 1e-6 * mag[same]).all())
+    dec = hsq_rows.hsq_decode(c, u, cb)
+    assert dec.shape == (2, 3001, dim)
+    assert torch.equal(dec, hsq_rows.hsq_decode_plain(c, u, cb))
+    u1, c1 = hsq_rows.hsq_encode(rows[1], cb, code_dtype)
+    assert torch.equal(u1, u[1]) and torch.equal(c1, c[1])
+    assert hsq_rows.launches == {"hsq_rows_encode": before["hsq_rows_encode"] + 2,
+                                 "hsq_rows_decode": before["hsq_rows_decode"] + 1}
+
+
+def test_cuda_decode_and_rows_refuse_bad_input(cuda_device):
+    cb = torch.from_numpy(_codebook(1, 256, 16)).to(cuda_device)
+    codes = torch.zeros((2, 64), dtype=torch.int32, device=cuda_device)
+    u = torch.ones((2, 64), device=cuda_device)
+    for decode in (lambda c, v, b: hsq_ops.hsq_decode_flat(c, v, b, 16, 1), hsq_rows.hsq_decode):
+        with pytest.raises(ValueError):
+            decode(codes.long(), u, cb)
+        with pytest.raises(ValueError):
+            decode(codes, u.double(), cb)
+        with pytest.raises(ValueError):
+            decode(codes.t().contiguous().t(), u, cb)            # not contiguous
+        with pytest.raises(ValueError):
+            decode(codes, u[:, :32], cb)                         # shapes differ
+        with pytest.raises(ValueError):
+            decode(codes, u, cb.cpu())                           # codebook elsewhere
+    with pytest.raises(ValueError):
+        hsq_ops.hsq_decode_flat(codes, u, cb, 16, 3)             # passes
+    with pytest.raises(ValueError):
+        hsq_ops.hsq_decode_flat(codes, u, cb, 8, 1)              # dim is not the codebook's
+    rows = torch.randn(2, 20, 16, device=cuda_device)
+    with pytest.raises(ValueError):
+        hsq_rows.hsq_encode(rows.double(), cb)
+    with pytest.raises(ValueError):
+        hsq_rows.hsq_encode(rows[:, :, :8], cb)                  # not contiguous, wrong dim
+    with pytest.raises(ValueError):
+        hsq_rows.hsq_encode(rows, cb.cpu())
+    with pytest.raises(ValueError):
+        hsq_rows.hsq_encode(rows, torch.randn(300, 16, device=cuda_device), torch.uint8)
+    with pytest.raises(NotImplementedError):
+        hsq_rows.hsq_encode(torch.randn(4, 300, device=cuda_device),
+                            torch.randn(8, 300, device=cuda_device))
+
+
+def test_cuda_tensor_never_reaches_a_plain_version(cuda_device, monkeypatch):
+    """A CUDA tensor launches the kernel; a CPU tensor computes the plain
+    version and launches nothing."""
+    cb = torch.from_numpy(_codebook(4, 64, 16)).to(cuda_device)
+    rows = torch.randn(2, 100, 16, device=cuda_device)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    real = {(mod, name): getattr(mod, name) for mod, name in (
+        (hsq_ops, "hsq_encode_flat_plain"), (hsq_ops, "hsq_decode_plain"),
+        (hsq_ops, "hsq_decode_mean_plain"), (hsq_rows, "hsq_encode_plain"),
+        (hsq_rows, "hsq_decode_plain"))}
+    for mod, name in real:
+        monkeypatch.setattr(mod, name, refuse)
+    u, c = hsq_ops.hsq_encode_flat(rows.reshape(2, -1), cb, 16, 1)
+    hsq_ops.hsq_decode_flat(c, u, cb, 16, 1)
+    hsq_ops.hsq_decode_mean(c, u, cb, 16, 1)
+    u, c = hsq_rows.hsq_encode(rows, cb, torch.uint8)
+    hsq_rows.hsq_decode(c, u, cb)
+    torch.cuda.synchronize()
+    for (mod, name), fn in real.items():
+        monkeypatch.setattr(mod, name, fn)
+    before = dict(hsq_ops.launches), dict(hsq_rows.launches)
+    u, c = hsq_rows.hsq_encode(rows.cpu(), cb.cpu(), torch.uint8)
+    hsq_rows.hsq_decode(c, u, cb.cpu())
+    hsq_ops.hsq_decode_flat(c, u, cb.cpu(), 16, 2)
+    assert (dict(hsq_ops.launches), dict(hsq_rows.launches)) == before

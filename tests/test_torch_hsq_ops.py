@@ -1,4 +1,6 @@
-"""gqx_torch's HSQ and uniform kernels, held against gqx's Pallas kernels.
+"""gqx_torch's HSQ and uniform kernels, held against gqx's Pallas kernels:
+the v4 generation (``pallas_hsq4``) and the v3 generation (``pallas_hsq3``),
+which compute the same three functions on the same m-order contract.
 
 On the CPU the port's wrappers compute their plain PyTorch versions; gqx's
 kernels run in Pallas interpret mode, as gqx's own tests run them.  The
@@ -11,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from gqx.ops import pallas_hsq4
+from gqx.ops import pallas_hsq3, pallas_hsq4
 from gqx.ops.pallas_hsq2 import bf16_exact_codebook as gqx_bf16_exact
 from gqx.ops.pallas_hsq2 import expand_codebook, split_hi_lo
 from gqx_torch.ops import hsq as hsq_ops
@@ -56,19 +58,22 @@ def _top2_margin(x, cb, passes):
     return ((top[:, 0] - top[:, 1]) / top[:, 0].clamp_min(1e-30)).numpy()
 
 
-@pytest.mark.parametrize("passes", [1, 2])
-@pytest.mark.parametrize("dim,k", [(16, 256), (8, 64)])
-def test_encode_matches_pallas_kernel(rng, passes, dim, k):
+def _check_encode(kernels, rng, passes, dim, k, batched=True):
+    """The port's encode against ``kernels.hsq_encode_flat`` (interpret)."""
     users, m = 3, 403
     cb = _codebook(rng, k, dim)
     x = _encode_inputs(rng, cb, users, m)
     eh, el = _gqx_operands(cb)
-    u_j, c_j = pallas_hsq4.hsq_encode_flat(jnp.asarray(x), eh, el, dim, tile_s=8,
-                                           passes=passes, interpret=True)
-    u_j, c_j = np.asarray(u_j), np.asarray(c_j)
-    u_t, c_t = hsq_ops.hsq_encode_flat(torch.from_numpy(x), torch.from_numpy(cb),
+    if not batched:
+        users, x = 1, x[1:2]
+    x_in = x if batched else x[0]
+    u_j, c_j = kernels.hsq_encode_flat(jnp.asarray(x_in), eh, el, dim, tile_s=8,
+                                       passes=passes, interpret=True)
+    u_t, c_t = hsq_ops.hsq_encode_flat(torch.from_numpy(x_in), torch.from_numpy(cb),
                                        dim, passes, torch.uint8)
-    u_t, c_t = u_t.numpy(), c_t.numpy().astype(np.int32)
+    assert u_t.shape == u_j.shape and c_t.shape == c_j.shape and c_t.dtype == torch.uint8
+    u_j, c_j = np.asarray(u_j).reshape(users, m), np.asarray(c_j).reshape(users, m)
+    u_t, c_t = u_t.numpy().reshape(users, m), c_t.numpy().astype(np.int32).reshape(users, m)
 
     # the constructed rows reproduce the kernel's tie rule exactly
     np.testing.assert_array_equal(c_t[:, :8], c_j[:, :8])
@@ -86,6 +91,20 @@ def test_encode_matches_pallas_kernel(rng, passes, dim, k):
     same = ~differ
     np.testing.assert_allclose(u_t.reshape(-1)[same], u_j.reshape(-1)[same],
                                rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("dim,k", [(16, 256), (8, 64)])
+def test_encode_matches_pallas_kernel(rng, passes, dim, k):
+    _check_encode(pallas_hsq4, rng, passes, dim, k)
+
+
+@pytest.mark.parametrize("batched", [True, False])
+@pytest.mark.parametrize("passes", [1, 2])
+def test_encode_matches_pallas_v3_kernel(rng, passes, batched):
+    """The v3 generation of the encode (tie rows included): the same
+    function, so the same kernel and plain version stand for it."""
+    _check_encode(pallas_hsq3, rng, passes, 16, 256, batched)
 
 
 def test_encode_bf16_input_equals_rounded_f32(rng):
@@ -147,6 +166,53 @@ def test_decode_plain_matches_pallas_decode(rng):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("users,span", [(4, 3), (8, 256)])
+def test_decode_mean_matches_pallas_v3_kernel(rng, passes, users, span):
+    """The v3 generation of the decode-mean, uint8 codes: the tolerance is
+    the v4 test's (the order of the fp32 additions)."""
+    dim, k, m = 16, 256, 517
+    cb = _codebook(rng, k, dim)
+    codes = rng.integers(0, span, (users, m)).astype(np.int32)
+    u = rng.standard_normal((users, m)).astype(np.float32)
+    eh, el = _gqx_operands(cb)
+    want = np.asarray(pallas_hsq3.hsq_decode_mean(
+        jnp.asarray(codes), jnp.asarray(u), eh, el, dim, tile_s=8, passes=passes,
+        interpret=True))
+    got = hsq_ops.hsq_decode_mean(torch.from_numpy(codes.astype(np.uint8)),
+                                  torch.from_numpy(u), torch.from_numpy(cb), dim,
+                                  passes).numpy()
+    assert np.all(np.abs(got - want) <= _decode_tolerance(codes, u, cb, dim))
+
+
+@pytest.mark.parametrize("batched", [True, False])
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("kernels", [pallas_hsq4, pallas_hsq3], ids=["v4", "v3"])
+def test_decode_flat_matches_pallas_kernels(rng, kernels, passes, batched):
+    """The per-user decode wrapper (its plain version on the CPU) against both
+    generations of gqx's kernel: exact, since every product of a bf16 scale
+    with a bf16-exact codeword is exact in float32.  uint8 and int32 codes,
+    (U, M) and (M,)."""
+    dim, k, m = 16, 256, 333
+    cb = _codebook(rng, k, dim)
+    shape = (3, m) if batched else (m,)
+    codes = rng.integers(0, k, shape).astype(np.int32)
+    u = (rng.standard_normal(shape) * 10.0 ** rng.uniform(-3, 1, shape)).astype(np.float32)
+    eh, el = _gqx_operands(cb)
+    want = np.asarray(kernels.hsq_decode_flat(
+        jnp.asarray(codes), jnp.asarray(u), eh, el, dim, tile_s=8, passes=passes,
+        interpret=True))
+    for code_dtype in (np.uint8, np.int32):
+        got = hsq_ops.hsq_decode_flat(torch.from_numpy(codes.astype(code_dtype)),
+                                      torch.from_numpy(u), torch.from_numpy(cb), dim, passes)
+        assert got.shape == shape[:-1] + (m * dim,) and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+    if passes == 1:
+        # the scale is rounded to bf16: not the float32 product
+        exact = (cb[codes] * u[..., None]).reshape(want.shape)
+        assert np.abs(want - exact).max() > 0
+
+
 def test_bf16_exact_codebook_matches_gqx(rng):
     cb = rng.standard_normal((64, 16)).astype(np.float32)
     got = bf16_exact_codebook(cb)
@@ -206,5 +272,6 @@ def test_cpu_wrappers_take_plain_versions(rng):
     cb = torch.from_numpy(_codebook(rng, 64, 16))
     u, c = hsq_ops.hsq_encode_flat(torch.randn(2, 160), cb, 16, 1)
     hsq_ops.hsq_decode_mean(c, u, cb, 16, 1)
+    hsq_ops.hsq_decode_flat(c, u, cb, 16, 1)
     rand_ops.uniform(1, 0, (3,), "cpu")
     assert (dict(hsq_ops.launches), rand_ops.launches) == before

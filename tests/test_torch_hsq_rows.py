@@ -1,0 +1,161 @@
+"""gqx_torch's row-major HSQ encode/decode (``ops/hsq_rows.py``) and the
+HSQ compressor outside the flat-layout envelope, against gqx's
+``ops/pallas_hsq.py`` kernels in Pallas interpret mode on the same numpy
+inputs.  On the CPU the port's wrappers compute their plain versions.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gqx.ops.pallas_hsq as gqx_rows
+from gqx.compress import make_compressor as gqx_make
+from gqx.config import GQConfig as GqxConfig
+from gqx_torch.compress import make_compressor
+from gqx_torch.config import GQConfig
+from gqx_torch.ops import hsq_rows
+
+
+def _codebook(rng, k, dim):
+    """Unit codewords in raw float32 (not bf16-representable)."""
+    cb = rng.standard_normal((k, dim)).astype(np.float32)
+    return cb / np.linalg.norm(cb, axis=1, keepdims=True)
+
+
+def _top2_margin(rows, cb):
+    p = np.abs(rows.astype(np.float64) @ cb.astype(np.float64).T)
+    top = np.sort(p, axis=1)[:, -2:]
+    return (top[:, 1] - top[:, 0]) / np.maximum(top[:, 1], 1e-30)
+
+
+@pytest.mark.parametrize("k", [64, 1024])
+@pytest.mark.parametrize("dim", [8, 16, 24])
+def test_rows_encode_decode_match_pallas_kernel(rng, dim, k):
+    m = 700
+    cb = _codebook(rng, k, dim)
+    rows = rng.standard_normal((m, dim)).astype(np.float32)
+    rows[:3] = 0.0                                   # zero rows: code 0, u 0
+    u_j, c_j = gqx_rows.hsq_encode(jnp.asarray(rows), jnp.asarray(cb), tile_m=256,
+                                   interpret=True)
+    u_j, c_j = np.array(u_j), np.array(c_j)
+    u_t, c_t = hsq_rows.hsq_encode(torch.from_numpy(rows), torch.from_numpy(cb))
+    assert u_t.dtype == torch.float32 and c_t.dtype == torch.int32
+    u_t, c_t = u_t.numpy(), c_t.numpy()
+    np.testing.assert_array_equal(c_t[:3], 0)
+    np.testing.assert_array_equal(u_t[:3], 0.0)
+
+    # the two packages sum the dim fp32 products in different orders, so a
+    # code may differ only where the top two |p| are within 1e-5 relative
+    differ = c_t != c_j
+    assert np.all(_top2_margin(rows, cb)[differ] <= 1e-5)
+    # u: 1e-6 relative to the summed magnitudes |x| . |c| (a sum of dim
+    # products rounded in another order)
+    mag = (np.abs(rows) @ np.abs(cb).T)[np.arange(m), c_j]
+    assert np.all(np.abs(u_t - u_j)[~differ] <= 1e-6 * mag[~differ])
+
+    # decode: one fp32 product per element, exact
+    want = np.asarray(gqx_rows.hsq_decode(jnp.asarray(c_j), jnp.asarray(u_j), jnp.asarray(cb),
+                                          tile_m=256, interpret=True))
+    got = hsq_rows.hsq_decode(torch.from_numpy(c_j), torch.from_numpy(u_j),
+                              torch.from_numpy(cb)).numpy()
+    assert got.shape == (m, dim)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(gqx_rows.hsq_decode_xla(
+        jnp.asarray(c_j), jnp.asarray(u_j), jnp.asarray(cb))))
+
+
+def test_rows_encode_tie_takes_first_index():
+    """argmax |p| with the first index: p = [-3, 3] gives code 0 and u = -3,
+    where the flat-layout encode's ``pos >= -neg`` rule gives code 1."""
+    cb = np.zeros((4, 8), np.float32)
+    cb[0, 0], cb[1, 0], cb[2, 1], cb[3, 1] = -1.0, 1.0, 0.5, 0.5
+    rows = np.zeros((3, 8), np.float32)
+    rows[0, 0] = 3.0            # p = [-3, 3, 0, 0]
+    rows[1, 1] = -2.0           # p = [0, 0, -1, -1]: the first of an equal pair
+    rows[2, 0] = -3.0           # p = [3, -3, 0, 0]
+    u_j, c_j = gqx_rows.hsq_encode(jnp.asarray(rows), jnp.asarray(cb), interpret=True)
+    for dtype in (torch.int32, torch.uint8):
+        u_t, c_t = hsq_rows.hsq_encode(torch.from_numpy(rows), torch.from_numpy(cb), dtype)
+        assert c_t.dtype == dtype
+        np.testing.assert_array_equal(c_t.numpy(), [0, 2, 0])
+        np.testing.assert_array_equal(u_t.numpy(), [-3.0, -1.0, 3.0])
+        np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+        np.testing.assert_array_equal(u_t.numpy(), np.asarray(u_j))
+
+
+def test_rows_batched_equals_per_user(rng):
+    cb = torch.from_numpy(_codebook(rng, 64, 24))
+    rows = torch.from_numpy(rng.standard_normal((3, 50, 24)).astype(np.float32))
+    before = dict(hsq_rows.launches)
+    u, c = hsq_rows.hsq_encode(rows, cb)
+    dec = hsq_rows.hsq_decode(c, u, cb)
+    assert u.shape == c.shape == (3, 50) and dec.shape == (3, 50, 24)
+    for i in range(3):
+        ui, ci = hsq_rows.hsq_encode(rows[i], cb)
+        assert torch.equal(ui, u[i]) and torch.equal(ci, c[i])
+        assert torch.equal(hsq_rows.hsq_decode(ci, ui, cb), dec[i])
+    assert hsq_rows.launches == before       # CPU tensors take the plain versions
+
+
+@pytest.fixture
+def interpret_rows_kernels(monkeypatch):
+    """gqx's compressor calls its row-major kernels without ``interpret``."""
+    for name in ("hsq_encode", "hsq_decode"):
+        monkeypatch.setattr(gqx_rows, name,
+                            functools.partial(getattr(gqx_rows, name), interpret=True))
+
+
+@pytest.mark.parametrize("c_dim,k_bit,size", [(8, 10, 8 * 900), (16, 6, 24 * 301)])
+def test_hsq_compressor_rows_path_matches_gqx(rng, interpret_rows_kernels, c_dim, k_bit, size):
+    """A large codebook (dim 8, K 1024) and a ragged size (dim 24): compress,
+    decompress, decompress_batch and decode_mean against gqx with
+    ``use_pallas=True`` and ``random=False``."""
+    users = 3
+    kw = dict(quantizer="hsq", c_dim=c_dim, k_bit=k_bit, n_bit=6, random=False, hsq_passes=1)
+    gcfg = GqxConfig(**kw)
+    gcfg.use_pallas = True
+    gq = gqx_make("hsq", size, (size,), gcfg)
+    pt = make_compressor("hsq", size, (size,), GQConfig(**kw))
+    assert not gq.flat_ok and not pt.flat_ok
+    assert (pt.dim, pt.K, pt.M) == (gq.dim, gq.K, gq.M)
+    # the raw codebook, not the bf16-rounded one
+    assert pt.codewords.numpy().tobytes() == np.asarray(gq.codewords).tobytes()
+    assert pt.code_dtype == (torch.int32 if k_bit > 8 else torch.uint8)
+    g = rng.standard_normal((users, size)).astype(np.float32)
+    g[1] *= 1e-3
+
+    sig_j = gq.compress_batch(jnp.asarray(g), None)
+    sig_t = pt.compress_batch(torch.from_numpy(g), None)
+    assert sig_t["codes"].dtype == pt.code_dtype
+    codes_j = np.asarray(sig_j["codes"]).astype(np.int64)
+    differ = sig_t["codes"].numpy().astype(np.int64) != codes_j
+    assert differ.sum() <= 2                          # near-tie codes only
+    l_j, l_t = np.asarray(sig_j["u"]["l"]), sig_t["u"]["l"].numpy()
+    level = (l_t != l_j) & ~differ
+    assert level.sum() <= 2                           # u on a level boundary
+    np.testing.assert_allclose(sig_t["u"]["lower"].numpy().reshape(-1),
+                               np.asarray(sig_j["u"]["lower"]).reshape(-1), rtol=1e-6)
+
+    # decode of gqx's own signature: exact (one product per element)
+    sig_same = {"codes": torch.from_numpy(np.array(sig_j["codes"])),
+                "u": {k: torch.from_numpy(np.array(v)) for k, v in sig_j["u"].items()}}
+    dec_j = np.asarray(gq.decompress_batch(sig_j))
+    dec_t = pt.decompress_batch(sig_same)
+    np.testing.assert_array_equal(dec_t.numpy(), dec_j)
+    one = {"codes": sig_same["codes"][1], "u": {k: v[1] for k, v in sig_same["u"].items()}}
+    assert torch.equal(pt.decompress(one), dec_t[1])
+    # decode_mean: the mean over users, summed in another order (1e-6 of the
+    # summed magnitudes)
+    mean_j = np.asarray(gq.decode_mean(sig_j))
+    mean_t = pt.decode_mean(sig_same).numpy()
+    assert np.all(np.abs(mean_t - mean_j) <= 1e-6 * np.abs(dec_j).mean(0) + 1e-30)
+
+    # the port's own round trip differs from gqx's only on flipped subvectors
+    rt = pt.roundtrip_batch(torch.from_numpy(g), None).numpy()
+    bad = ~np.isclose(rt, dec_j, rtol=1e-5, atol=1e-8).reshape(users, pt.M, pt.dim).all(2)
+    assert not np.any(bad & ~(differ | level))
+    single = pt.roundtrip(torch.from_numpy(g[2]), None).numpy()
+    np.testing.assert_array_equal(single, rt[2])

@@ -43,10 +43,10 @@ def interpret_kernels(monkeypatch):
     monkeypatch.setattr(gqx_vq, "_hsq_kernels", lambda: shim)
 
 
-def _setup(name, rng):
+def _setup(name, rng, **extra):
     shape = (28, 28, 1) if name == "fcn" else (32, 32, 3)
     kw = dict(network=name, quantizer="hsq", c_dim=16, k_bit=8, n_bit=6,
-              num_users=USERS, batch_size=BATCH, random=False, hsq_passes=1)
+              num_users=USERS, batch_size=BATCH, random=False, hsq_passes=1, **extra)
     gcfg = GqxConfig(**kw)
     gcfg.use_pallas = True
     gmodel = gqx_create_model(name, 10)
@@ -84,11 +84,11 @@ def _load(model, gstate, state=None):
             t.copy_(trace[n])
 
 
-def _run_both(gstate, gstep, state, step, x, y):
-    gstate, gloss = gstep(gstate, jnp.asarray(x), jnp.asarray(y), jnp.float32(1.0),
+def _run_both(gstate, gstep, state, step, x, y, scale=1.0):
+    gstate, gloss = gstep(gstate, jnp.asarray(x), jnp.asarray(y), jnp.float32(scale),
                           jnp.float32(0.1), jnp.float32(5e-4), jax.random.PRNGKey(0))
     loss = step(state, torch.from_numpy(x.transpose(0, 1, 4, 2, 3).copy()),
-                torch.from_numpy(y), 0.1, 5e-4, None)
+                torch.from_numpy(y), 0.1, 5e-4, None, scale)
     np.testing.assert_allclose(float(loss), float(gloss), rtol=1e-5)
     return gstate
 
@@ -141,6 +141,30 @@ def test_two_hsq_steps_match_gqx(rng, interpret_kernels, name):
             _load(model, gstate, state)
 
 
+@pytest.mark.parametrize("extra", [
+    dict(ef=True, two_phase=True), dict(mode="ring"), dict(mode="ring", ef=True),
+], ids=["ps_ef_two_phase", "ring", "ring_ef"])
+def test_two_fcn_steps_with_ef_and_ring_match_gqx(rng, interpret_kernels, extra):
+    """Error feedback with the two-phase downlink, and the chain ring, through
+    the entry points: parameters, momentum and the carried error-feedback
+    state after each of two steps, at an EF scale below 1."""
+    gstate, gstep, state, plan, step, x, y = _setup("fcn", rng, **extra)
+    for s in range(2):
+        gstate = _run_both(gstate, gstep, state, step, x[s], y[s], scale=0.5)
+        flipped, _ = _compare(state.model, state, plan, gstate, with_trace=True)
+        assert flipped == 0
+        ef_t, ef_j = state.agg_state.ef, gstate.agg_state.ef
+        assert (ef_t is None) == (ef_j is None) == (not extra.get("ef", False))
+        for group_t, group_j in ((ef_t, ef_j), (state.agg_state.server_ef,
+                                                gstate.agg_state.server_ef)):
+            assert (group_t is None) == (group_j is None)
+            for t, j in zip(group_t or (), group_j or ()):
+                # 1e-6 of the unit's scale: the same float32 ops in both packages
+                j = np.asarray(j)
+                assert np.abs(t.numpy() - j).max() <= 1e-6 * max(np.abs(j).max(), 1e-30)
+    assert state.agg_state.server_ef is None or bool(state.agg_state.server_ef[0].any())
+
+
 def test_step_options_raise():
     with pytest.raises(ValueError):
         GQConfig(backend="mesh")
@@ -148,8 +172,20 @@ def test_step_options_raise():
         GQConfig(scan_blocks=True)
     with pytest.raises(ValueError):
         GQConfig(use_pallas=False)
-    with pytest.raises(NotImplementedError):
-        init_state(None, 2, ef=True, two_phase=False)
+    with pytest.raises(ValueError):
+        GQConfig(mode="tree")
+    cfg = GQConfig(network="fcn", quantizer="hsq", c_dim=16, k_bit=8, n_bit=6, num_users=2)
+    _, plan = create_train_state(cfg, create_model("fcn", 10), device="cpu")
+    sizes = [u.size for u in plan.units]
+    # EF state for every unit, the identity unit too; the server error only
+    # with EF and two-phase together (gqx/parallel/aggregate.py:48-57)
+    none = init_state(plan, 2, ef=False, two_phase=True)
+    assert none.ef is None and none.server_ef is None
+    ef = init_state(plan, 2, ef=True, two_phase=False)
+    assert [tuple(e.shape) for e in ef.ef] == [(2, n) for n in sizes] and ef.server_ef is None
+    both = init_state(plan, 2, ef=True, two_phase=True)
+    assert [tuple(e.shape) for e in both.server_ef] == [(n,) for n in sizes]
+    assert all(e.dtype == torch.float32 and not e.any() for e in both.ef + both.server_ef)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             create_train_state(GQConfig(quantizer="sgd"), create_model("fcn", 10))
