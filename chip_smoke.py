@@ -5,28 +5,36 @@
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions.
-2. Builds the six kernels from gqx_torch/csrc with nvcc (one process per
+2. Builds the seven kernels from gqx_torch/csrc with nvcc (one process per
    source, all at once) and prints the build time.
 3. Holds each kernel against its plain PyTorch version at the shapes the
    training paths give it (the ResNet-50 HSQ unit, 8 users): the flat
    encode, the fused decode-mean, the uniforms and the per-user decode at
    dim 16 / K 256, the row-major encode and decode at dim 8 / K 1024, plus
-   a ragged dim and a codebook larger than shared memory; and times
-   kernel, plain version and, where one exists, the single PyTorch call
-   computing the same function.
-4. Runs four training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute,
+   a ragged dim and a codebook larger than shared memory; the per-user conv
+   weight gradient at the five 3x3 geometries of ResNet-50 (8 users x 32,
+   bf16) and at three odd ones; and times kernel, plain version and, where
+   one exists, the PyTorch call computing the same function.
+4. Runs five training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute,
    hsq_passes=1, random weights and data from --seed), each for one
    warm-up step and --steps steps with the launch counters set to 0 just
    before and read just after:
-     P1  HSQ c_dim 16 / k_bit 8 / n_bit 6, parameter server (canonical);
+     P1  HSQ c_dim 16 / k_bit 8 / n_bit 6, parameter server, folded users
+         (canonical);
      P2  P1 with error feedback and the two-phase downlink;
      P3  P1 as a chain ring;
-     P4  HSQ c_dim 8 / k_bit 10 (the row-major kernels).
+     P4  HSQ c_dim 8 / k_bit 10 (the row-major kernels);
+     P5  P1 with folded_users=False (the per-user loop), one step.
    The counters must equal what the code implies.  The aggregate of one
-   more step of each path (and P2's new error-feedback state) is recomputed
-   on the CPU through the plain versions from the same gradients, state and
-   seed, and compared.  Then the fp32-wire ``sgd`` step for comparison.
-5. Prints the ``kernels`` JSON line, the card line and, last, the result
+   more step of each of P1-P4 (and P2's new error-feedback state) is
+   recomputed on the CPU through the plain versions from the same
+   gradients, state and seed, and compared.
+5. Compares folded and looped per-user gradients from the same weights and
+   batch on the card: ResNet-18 float32 and ResNet-50 bf16.
+6. Steps the four other configurations of the canonical comparison (sgd,
+   qsgd2bit, terngrad, sign), folded; the qsgd and sign aggregates are
+   recomputed on the CPU like the others.  Takes one eval step.
+7. Prints the ``kernels`` JSON line, the card line and, last, the result
    line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -91,18 +99,35 @@ PATHS = {
     "P3": (dict(mode="ring"), dict(hsq_encode="U", philox_uniform="U", hsq_decode="U")),
     "P4": (dict(c_dim=8, k_bit=10),
            dict(hsq_rows_encode=1, philox_uniform=1, hsq_rows_decode=1)),
+    "P5": (dict(folded_users=False), dict(hsq_encode=1, philox_uniform=1, hsq_decode_mean=1)),
 }
 EF_EPOCH = 1.0   # the error-feedback scale is config.ef_scale(EF_EPOCH)
+
+# the stride-1 same-size 3x3 convs of CIFAR ResNet-50, whose per-user weight
+# gradient the folded step takes from the per_user_dw kernel:
+# (Ci, Co, H = W, convs of that geometry)
+DW_GEOMETRIES = ((3, 64, 32, 1), (64, 64, 32, 3), (128, 128, 16, 3),
+                 (256, 256, 8, 5), (512, 512, 4, 2))
+DW_PER_STEP = sum(g[3] for g in DW_GEOMETRIES)
+
+# the other configurations of the canonical comparison
+COMPARISON = {
+    "sgd": dict(quantizer="sgd"),
+    "qsgd2bit": dict(quantizer="qsgd", c_dim=128, n_bit=2),
+    "terngrad": dict(quantizer="terngrad"),
+    "sign": dict(quantizer="sign"),
+}
 
 
 def canonical_config(quantizer: str = "hsq", **extra):
     from gqx_torch.config import GQConfig
 
-    kw = dict(c_dim=16, k_bit=8, n_bit=6) if quantizer == "hsq" else {}
+    kw = dict(network="resnet50", compute_dtype="bfloat16")
+    if quantizer == "hsq":
+        kw.update(c_dim=16, k_bit=8, n_bit=6)
     kw.update(extra)
-    return GQConfig(network="resnet50", dataset="synthetic", num_users=8,
-                    batch_size=32, quantizer=quantizer, compute_dtype="bfloat16",
-                    hsq_passes=1, **kw)
+    return GQConfig(dataset="synthetic", num_users=8, batch_size=32,
+                    quantizer=quantizer, hsq_passes=1, **kw)
 
 
 def check_encode(x, comp, passes, name):
@@ -405,6 +430,98 @@ def rows_kernel_phase(seed: int):
     return entries
 
 
+def dw_kernel_phase(seed: int):
+    """The per-user conv weight gradient against its plain version: the five
+    3x3 geometries of ResNet-50 at 8 users x 32 images in bf16, then three
+    odd ones (float32 inputs; the stem's 3 channels in float32 with an even
+    window and uneven pads; a 5x5 window with uneven pads on a 7x9 plane).
+
+    Tolerance: kernel and plain version add the same float32 products (exact
+    for bf16 operands) in different orders, so they may differ by
+    sqrt(n) * 2^-23 of the summed magnitudes, n = B*H*W terms per sum.
+
+    The entry's times are per training step: each geometry's time weighted by
+    how many convs of the step have it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from gqx_torch.ops import dw as dw_ops
+
+    dev = torch.device("cuda")
+    users, batch = 8, 32
+    rng = np.random.default_rng(seed + 3)
+
+    def make(ci, co, h, w, dtype, n=users * batch):
+        x = torch.from_numpy(rng.standard_normal((n, ci, h, w), dtype=np.float32)).to(dev, dtype)
+        dy = torch.from_numpy(rng.standard_normal((n, co, h, w), dtype=np.float32)).to(dev, dtype)
+        return x, dy * 1e-3
+
+    def check(x, dy, u, kh, kw, ph, pw, name):
+        got = dw_ops.per_user_dw(x, dy, u, kh, kw, ph, pw)
+        again = dw_ops.per_user_dw(x, dy, u, kh, kw, ph, pw)
+        want = dw_ops.per_user_dw_plain(x, dy, u, kh, kw, ph, pw)
+        mag = dw_ops.per_user_dw_plain(x.abs(), dy.abs(), u, kh, kw, ph, pw)
+        torch.cuda.synchronize()
+        n = x.shape[0] // u * x.shape[2] * x.shape[3]
+        err = (got - want).abs()
+        if got.shape != want.shape or not bool((err <= n ** 0.5 * 2.0 ** -23 * mag + 1e-30).all()):
+            raise AssertionError(f"per_user_dw {name}: max abs err {float(err.max())} beyond "
+                                 f"sqrt({n}) * 2^-23 of the summed magnitudes")
+        if not torch.equal(got, again):
+            raise AssertionError(f"per_user_dw {name}: two runs gave different bits")
+        rel = float((err / mag.clamp_min(1e-30)).max())
+        log(f"[per_user_dw {name}] max |out - plain| {float(err.max()):.3e} "
+            f"({rel:.2e} of the summed magnitudes; allowed {n ** 0.5 * 2.0 ** -23:.2e}); "
+            "two runs bit-equal")
+        return float(err.max())
+
+    def library(x, dy, u, kh, kw, ph, pw):
+        xp = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph))
+        b = x.shape[0] // u
+        shape = (dy.shape[1], x.shape[1], kh, kw)
+        return torch.stack([torch.nn.grad.conv2d_weight(xp[i * b:(i + 1) * b], shape,
+                                                        dy[i * b:(i + 1) * b]) for i in range(u)])
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    worst, by, geometries = 0.0, {"bytes": 0.0, "operations": 0.0}, []
+    for ci, co, hw, count in DW_GEOMETRIES:
+        x, dy = make(ci, co, hw, hw, torch.bfloat16)
+        name = f"{ci}->{co} @{hw}x{hw} bf16"
+        worst = max(worst, check(x, dy, users, 3, 3, 1, 1, name))
+        lib = library(x, dy, users, 3, 3, 1, 1).float()
+        ref = dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1)
+        if not bool(((lib - ref).abs() <= 2.0 ** -7 * ref.abs().max()).all()):
+            raise AssertionError(f"per_user_dw {name}: the library call computes something else")
+        n = users * batch * hw * hw
+        b_ms, b_by = bound((x.numel() + dy.numel()) * 2 + users * co * ci * 9 * 4,
+                           2.0 * 9 * n * ci * co, BF16_FLOPS)
+        g = dict(shape=name, per_step=count, bound_ms=b_ms, bound_by=b_by,
+                 ms=cuda_ms(lambda: dw_ops.per_user_dw(x, dy, users, 3, 3, 1, 1), 10),
+                 plain_ms=cuda_ms(lambda: dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1), 3),
+                 library_ms=cuda_ms(lambda: library(x, dy, users, 3, 3, 1, 1), 5))
+        log(f"[per_user_dw {name}] {g['ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}), "
+            f"plain {g['plain_ms']:.3f} ms, library (conv2d_weight per user) "
+            f"{g['library_ms']:.3f} ms; x{count} per step")
+        geometries.append(g)
+        by[b_by] += count * b_ms
+        for key in tot:
+            tot[key] += count * g[key]
+        del x, dy, lib, ref
+    x, dy = make(64, 64, 32, 32, torch.float32)
+    check(x, dy, users, 3, 3, 1, 1, "64->64 @32x32 float32")
+    log(f"[per_user_dw 64->64 @32x32 float32] "
+        f"{cuda_ms(lambda: dw_ops.per_user_dw(x, dy, users, 3, 3, 1, 1), 10):.4f} ms")
+    x, dy = make(3, 20, 32, 32, torch.float32, n=3 * 5)
+    check(x, dy, 3, 2, 2, 0, 1, "3->20 @32x32 float32 2x2 pads (0,1)")
+    x, dy = make(24, 70, 7, 9, torch.bfloat16, n=2 * 7)
+    check(x, dy, 2, 5, 5, 3, 1, "24->70 @7x9 bf16 5x5 pads (3,1)")
+    entry = dict(name="per_user_dw", route="cuda", source="gqx_torch/csrc/per_user_dw.cu",
+                 replaces="gqx/ops/pallas_dw.py:128", max_abs_err=worst,
+                 bound_by=max(by, key=by.get), geometries=geometries, **tot)
+    return {"per_user_dw": entry}
+
+
 def log_entries(entries):
     for e in entries.values():
         log(f"[{e['name']}] {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms by {e['bound_by']}), "
@@ -436,6 +553,7 @@ def run_steps(cfg, seed: int, steps: int, count_fn=None):
     y = torch.from_numpy(rng.integers(0, 10, (cfg.num_users, cfg.batch_size))).to(dev)
     gen = torch.Generator().manual_seed(seed + 1)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
     losses = [float(step(state, x, y, 0.1, 5e-4, gen))]   # warm-up
     if count_fn is not None:
         count_fn(reset=True)
@@ -447,6 +565,8 @@ def run_steps(cfg, seed: int, steps: int, count_fn=None):
     launches = count_fn() if count_fn is not None else None
     losses += [float(v) for v in out]
     what = f"{cfg.quantizer} {cfg.mode}"
+    log(f"[memory {what}{'' if cfg.folded_users else ' loop'}] peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{what}: non-finite loss {losses}")
     changed = sum(int(not torch.equal(before[n], p)) for n, p in model.named_parameters())
@@ -459,6 +579,7 @@ def run_steps(cfg, seed: int, steps: int, count_fn=None):
 
 
 def counters(reset=False):
+    from gqx_torch.ops import dw as dw_ops
     from gqx_torch.ops import hsq as hsq_ops
     from gqx_torch.ops import hsq_rows
     from gqx_torch.ops import rand as rand_ops
@@ -468,8 +589,19 @@ def counters(reset=False):
             for key in table:
                 table[key] = 0
         rand_ops.launches = 0
+        dw_ops.launches = 0
         return None
-    return {**hsq_ops.launches, **hsq_rows.launches, "philox_uniform": rand_ops.launches}
+    return {**hsq_ops.launches, **hsq_rows.launches, "philox_uniform": rand_ops.launches,
+            "per_user_dw": dw_ops.launches}
+
+
+def per_user_grads(cfg, state, plan, x, y):
+    """The per-user gradients as ``cfg``'s train step computes them."""
+    from gqx_torch.train import folded_user_grads, user_grads
+
+    if cfg.folded_users:
+        return folded_user_grads(state.model, plan, plan.names, x, y)
+    return user_grads(state.model, plan.names, x, y)
 
 
 def device_profile(state, step, batch, ms_step):
@@ -492,12 +624,12 @@ def device_profile(state, step, batch, ms_step):
         return
     log(f"[profile] device kernel time {device_ms:.2f} ms per step = "
         f"{100 * device_ms / ms_step:.1f}% of the {ms_step:.2f} ms step; "
-        f"{sum(r[1] for r in rows)} kernel launches")
-    for t, n, key in sorted(rows, reverse=True)[:8]:
+        f"{sum(r[1] for r in rows)} kernel launches per step")
+    for t, n, key in sorted(rows, reverse=True)[:10]:
         log(f"[profile]   {t / 1e3:8.3f} ms  x{n:<5d} {key[:90]}")
 
 
-def breakdown_and_reference(state, plan, step, batch, seed, ms_step):
+def breakdown_and_reference(cfg, state, plan, step, batch, seed, ms_step):
     """One more step, stage by stage with a synchronise after each stage
     (host clock), then its aggregate recomputed on the CPU through the plain
     versions from the same per-user gradients and seed.  HSQ units may
@@ -506,7 +638,7 @@ def breakdown_and_reference(state, plan, step, batch, seed, ms_step):
     import torch
 
     from gqx_torch.models.common import update_running_stats
-    from gqx_torch.train import fused_sgd_update, user_grads
+    from gqx_torch.train import fused_sgd_update
 
     x, y, _ = batch
     model = state.model
@@ -520,7 +652,7 @@ def breakdown_and_reference(state, plan, step, batch, seed, ms_step):
         times[name] = times.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
         return out
 
-    _, grads = timed("user_fwd_bwd", lambda: user_grads(model, plan.names, x, y))
+    _, grads = timed("user_fwd_bwd", lambda: per_user_grads(cfg, state, plan, x, y))
     units = timed("pack", lambda: plan.pack(grads))
     sigs, means = [], []
     for u, g in zip(plan.units, units):
@@ -568,13 +700,14 @@ def aggregate_reference(name, cfg, state, plan, step, batch, seed, ms_step):
     aggregator state and the same seed, on the CPU, where every wrapper
     computes its plain version.  HSQ units (aggregate and new error-feedback
     state) may differ only on a few subvectors (near-tie codes, level
-    boundaries, at most 1e-3 of them); identity units must agree to 1e-6 of
-    the summed magnitudes."""
+    boundaries, at most 1e-3 of them); QSGD and sign units only on a few
+    elements (at most 1e-5 of them: the same exactly rounded operations on
+    both devices, but for the order of the users' sum); identity units must
+    agree to 1e-6 of the summed magnitudes."""
     import torch
 
     from gqx_torch.parallel.aggregate import AggState, make_aggregator
     from gqx_torch.parallel.packing import UnitPlan
-    from gqx_torch.train import user_grads
 
     x, y, _ = batch
     times = {}
@@ -594,7 +727,7 @@ def aggregate_reference(name, cfg, state, plan, step, batch, seed, ms_step):
 
     aggregator = make_aggregator(cfg, plan)
     scale = cfg.ef_scale(EF_EPOCH)
-    _, grads = timed("user_fwd_bwd", lambda: user_grads(state.model, plan.names, x, y))
+    _, grads = timed("user_fwd_bwd", lambda: per_user_grads(cfg, state, plan, x, y))
     cpu_state = AggState(to_cpu(state.agg_state.ef), to_cpu(state.agg_state.server_ef))
     cpu_grads = {n: g.cpu() for n, g in grads.items()}
     agg = timed("aggregate", lambda: aggregator(
@@ -619,6 +752,12 @@ def aggregate_reference(name, cfg, state, plan, step, batch, seed, ms_step):
                     "subvectors differ from the CPU plain path")
                 if bad > 1e-3 * total:
                     raise AssertionError(f"{name} {label}: {bad} subvectors differ")
+            elif type(comp).__name__ != "IdenticalCompressor":
+                bad = int(((got - ref).abs() > 1e-6 * ref.abs().max()).sum())
+                log(f"[reference {name}] {label}, {type(comp).__name__} unit of {u.size}: "
+                    f"{bad} of {got.numel()} elements differ from the CPU plain path")
+                if bad > 1e-5 * got.numel():
+                    raise AssertionError(f"{name} {label}: {bad} elements differ")
             else:
                 err = (got - ref).abs()
                 tol = 1e-6 * g.float().abs().sum(0) + 1e-30
@@ -627,6 +766,164 @@ def aggregate_reference(name, cfg, state, plan, step, batch, seed, ms_step):
                 if not bool((err <= tol).all()):
                     raise AssertionError(f"{name} {label}: identity unit differs from the CPU path")
     device_profile(state, step, batch, ms_step)
+
+
+def eval_check(state, batch):
+    """One eval step on the first user's micro-batch: a finite loss, a
+    count of correct predictions, and the model left in training mode."""
+    import math
+
+    from gqx_torch.train import evaluate, make_eval_step
+
+    x, y, _ = batch
+    loss, acc = evaluate(make_eval_step(state.model), [(x[i], y[i]) for i in range(2)])
+    if not (math.isfinite(loss) and 0.0 <= acc <= 1.0 and state.model.training):
+        raise AssertionError(f"eval: loss {loss}, accuracy {acc}, training {state.model.training}")
+    log(f"[eval] 2 batches of {x.shape[1]}: loss {loss:.5f} (the reference's sum of batch means "
+        f"over the dataset size), accuracy {acc:.4f}")
+
+
+# folded against looped per-user gradients; see folded_vs_looped
+GRAD_TOL = {
+    # float32: per leaf, the median |diff| and the L2 error, relative to the
+    # leaf's largest magnitude and to its norm
+    "float32": dict(median=1e-5, leaf_l2=2e-2),
+    # bf16: the L2 error of all leaves together and of the worst conv or
+    # dense weight, each relative to its norm, and as a multiple of the same
+    # error of the bf16 loop against the float32 loop
+    "bfloat16": dict(all_l2=2e-2, weight_l2=0.4, of_bf16_noise=2.0),
+}
+
+
+def _grad_errors(model, names, got, want):
+    """(relative L2 error over all leaves together, worst relative L2 error
+    of a conv or dense weight with its name, per leaf rows (relative L2,
+    max and median |diff| over the leaf's largest magnitude, name))."""
+    import torch
+
+    rows, num, den, worst_w = [], 0.0, 0.0, (0.0, "")
+    for n in names:
+        g, w = got[n], want[n]
+        if n.endswith("linear.bias"):        # no ghost: the folded total / U
+            g = g.mean(0, keepdim=True).expand_as(g)
+            w = w.mean(0, keepdim=True).expand_as(w)
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"gradient of {n} is not finite")
+        diff = (g - w).abs()
+        scale = float(w.abs().max().clamp_min(1e-30))
+        l2 = float(diff.norm() / w.norm().clamp_min(1e-30))
+        num, den = num + float(diff.norm()) ** 2, den + float(w.norm()) ** 2
+        rows.append((l2, float(diff.max()) / scale, float(diff.median()) / scale, n))
+        if model.get_parameter(n).dim() >= 2 and l2 > worst_w[0]:
+            worst_w = (l2, n)
+    return (num / den) ** 0.5, worst_w, rows
+
+
+def folded_vs_looped(seed: int):
+    """From the same weights and batch on the card, the folded step's
+    per-user gradients against the per-user loop's, at 8 users x 32.  BN
+    biases are drawn from [1, 2], which keeps most ReLU inputs away from 0.
+
+    ResNet-18 in float32 (no TF32): the two routes differ by the summation
+    order of cuDNN's algorithms for batch 256 and batch 32, about 1e-6, but
+    among 10^7 ReLU inputs a few lie that close to zero and take opposite
+    signs; one such flip moves a few elements by percents of the leaf's
+    scale (a BN bias gradient sums only B*H*W = 512 terms at the last stage)
+    and everything upstream of it a little.  So each leaf is held by its
+    median |diff| over its largest magnitude and by its relative L2 error.
+
+    ResNet-50 in bf16 compute: activations differ in the last bf16 bit
+    between the routes and each leaf is itself rounded to bf16.  The gradient
+    of a BN bias that feeds the next block's BN is, by that BN's shift
+    invariance, a sum that nearly cancels, so its relative error says
+    nothing; the check is on all leaves together and on the worst conv or
+    dense weight, in relative L2, absolutely and against the yardstick of
+    bf16 itself: the same loop in bf16 against the loop in float32.  The
+    folded gradients must also lie as close to the float32 loop as the bf16
+    loop does (within 1.5x)."""
+    import numpy as np
+    import torch
+
+    from gqx_torch.models import create_model
+    from gqx_torch.models.common import clear_batch_stats
+    from gqx_torch.train import create_train_state, folded_user_grads, user_grads
+
+    dev = torch.device("cuda")
+
+    def build(network, dtype):
+        cfg = canonical_config(network=network, compute_dtype=dtype)
+        gen = torch.Generator().manual_seed(seed + 5)
+        model = create_model(network, cfg.num_classes, dtype, gen)
+        with torch.no_grad():
+            for mod in model.modules():
+                if type(mod).__name__ == "BatchNorm":
+                    mod.bias.uniform_(1.0, 2.0, generator=gen)
+        state, plan = create_train_state(cfg, model, device="cuda")
+        return cfg, model, plan
+
+    for network, dtype in (("resnet18", "float32"), ("resnet50", "bfloat16")):
+        cfg, model, plan = build(network, dtype)
+        rng = np.random.default_rng(seed + 5)
+        x = torch.from_numpy(rng.standard_normal(
+            (cfg.num_users, cfg.batch_size, 3, 32, 32), dtype=np.float32)).to(dev)
+        y = torch.from_numpy(rng.integers(0, 10, (cfg.num_users, cfg.batch_size))).to(dev)
+        loss_f, grads_f = folded_user_grads(model, plan, plan.names, x, y)
+        clear_batch_stats(model)
+        loss_l, grads_l = user_grads(model, plan.names, x, y)
+        clear_batch_stats(model)
+        torch.cuda.synchronize()
+        all_l2, (weight_l2, weight_name), rows = _grad_errors(model, plan.names, grads_f, grads_l)
+        d_loss = float((loss_f - loss_l).abs().max())
+        log(f"[folded vs loop] {network} {dtype} 8x32, {len(rows)} leaves: relative L2 of all "
+            f"leaves together {all_l2:.3e}, worst weight {weight_l2:.3e} ({weight_name}), worst "
+            f"leaf {max(r[0] for r in rows):.3e}; median |diff| / scale up to "
+            f"{max(r[2] for r in rows):.3e}; losses differ by up to {d_loss:.3e}")
+        for r in sorted(rows, reverse=True)[:3]:
+            log(f"[folded vs loop]   {r[3]}: relative L2 {r[0]:.3e}, max {r[1]:.3e}, "
+                f"median {r[2]:.3e} of the leaf's scale")
+        tol = GRAD_TOL[dtype]
+        if dtype == "float32":
+            ok = (max(r[2] for r in rows) <= tol["median"]
+                  and max(r[0] for r in rows) <= tol["leaf_l2"] and d_loss <= 1e-5)
+        else:
+            _, model32, plan32 = build(network, "float32")
+            _, grads_32 = user_grads(model32, plan32.names, x, y)
+            torch.cuda.synchronize()
+            noise_all, (noise_w, noise_name), _ = _grad_errors(model, plan.names, grads_l, grads_32)
+            log(f"[folded vs loop]   the yardstick, bf16 loop against float32 loop: all leaves "
+                f"together {noise_all:.3e}, worst weight {noise_w:.3e} ({noise_name})")
+            truth_all, (truth_w, truth_name), _ = _grad_errors(model, plan.names, grads_f, grads_32)
+            log(f"[folded vs loop]   bf16 folded against float32 loop: all leaves together "
+                f"{truth_all:.3e}, worst weight {truth_w:.3e} ({truth_name})")
+            ok = (all_l2 <= tol["all_l2"] and weight_l2 <= tol["weight_l2"]
+                  and all_l2 <= tol["of_bf16_noise"] * noise_all
+                  and weight_l2 <= tol["of_bf16_noise"] * noise_w
+                  and truth_all <= 1.5 * noise_all and truth_w <= 1.5 * noise_w
+                  and d_loss <= 5e-2)
+            del grads_32, model32
+        if not ok:
+            raise AssertionError(f"folded and looped gradients of {network} {dtype} differ "
+                                 f"beyond {tol}")
+        del grads_f, grads_l, model
+        torch.cuda.empty_cache()
+
+
+def comparison_phase(seed: int, steps: int):
+    """1 + ``steps`` folded steps of each other configuration of the
+    canonical comparison; the qsgd and sign aggregates against the CPU plain
+    path."""
+    import torch
+
+    for name, extra in COMPARISON.items():
+        cfg = canonical_config(**extra)
+        ms, losses, state, plan, step, batch, _ = run_steps(cfg, seed, steps)
+        log(f"[slice {name}] resnet50 8x32 {extra} bf16, folded: {ms:.2f} ms/step over "
+            f"{steps} steps, losses {[round(v, 4) for v in losses]}, "
+            f"wire {plan.wire_bytes()} B/user/step, {len(plan.units)} units")
+        if name in ("qsgd2bit", "sign"):
+            aggregate_reference(name, cfg, state, plan, step, batch, seed, ms)
+        del state, step, batch
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -653,44 +950,51 @@ def main():
     torch.cuda.empty_cache()
     entries.update(rows_kernel_phase(args.seed))
     torch.cuda.empty_cache()
+    entries.update(dw_kernel_phase(args.seed))
+    torch.cuda.empty_cache()
     log_entries(entries)
     for e in entries.values():
         e["launches"], e["launches_by_path"] = 0, {}
 
     for name, (extra, per_step) in PATHS.items():
         cfg = canonical_config(**extra)
-        ms, losses, state, plan, step, batch, launches = run_steps(
-            cfg, args.seed, args.steps, counters)
+        steps = args.steps if cfg.folded_users else 1
+        ms, losses, state, plan, step, batch, launches = run_steps(cfg, args.seed, steps, counters)
         log(f"[slice {name}] resnet50 8x32 hsq {extra or 'canonical'} bf16: {ms:.2f} ms/step "
-            f"over {args.steps} steps, losses {[round(v, 4) for v in losses]}, "
+            f"over {steps} steps, losses {[round(v, 4) for v in losses]}, "
             f"wire {plan.wire_bytes()} B/user/step")
         log(f"[slice {name}] launches: {launches}")
         hsq_units = sum(1 for u in plan.units if type(u.compressor).__name__ == "HSQCompressor")
         for kernel, count in launches.items():
             n = per_step.get(kernel, 0)
-            want = args.steps * hsq_units * (cfg.num_users if n == "U" else n)
+            want = steps * hsq_units * (cfg.num_users if n == "U" else n)
+            if kernel == "per_user_dw":
+                want = steps * DW_PER_STEP if cfg.folded_users else 0
             if count != want:
                 raise AssertionError(f"{name}: {kernel} launched {count} times in "
-                                     f"{args.steps} steps, expected {want}")
+                                     f"{steps} steps, expected {want}")
             entries[kernel]["launches"] += count
             entries[kernel]["launches_by_path"][name] = count
         if name == "P1":
-            breakdown_and_reference(state, plan, step, batch, args.seed, ms)
-        else:
+            breakdown_and_reference(cfg, state, plan, step, batch, args.seed, ms)
+            eval_check(state, batch)
+        elif cfg.folded_users:
             aggregate_reference(name, cfg, state, plan, step, batch, args.seed, ms)
+        else:
+            device_profile(state, step, batch, ms)
         del state, step, batch
         torch.cuda.empty_cache()
     for e in entries.values():
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']} was launched on no path")
 
-    sgd_cfg = canonical_config("sgd")
-    ms_sgd, sgd_losses, _, sgd_plan, _, _, _ = run_steps(sgd_cfg, args.seed, args.steps)
-    log(f"[slice sgd] resnet50 8x32 sgd (fp32 wire) bf16: {ms_sgd:.2f} ms/step, "
-        f"losses {[round(v, 4) for v in sgd_losses]}, wire {sgd_plan.wire_bytes()} B/user/step")
+    folded_vs_looped(args.seed)
+    torch.cuda.empty_cache()
+
+    comparison_phase(args.seed, args.steps)
 
     order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
-             "hsq_rows_encode", "hsq_rows_decode")
+             "hsq_rows_encode", "hsq_rows_decode", "per_user_dw")
     print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
-"""Scalar compressors: identity and the min/max probabilistic scalar
-quantizer that HSQ uses for its per-subvector norms (counterpart of
-``IdenticalCompressor`` and ``ProbabilisticScalarCompressor`` in
-``gqx/compress/scalar.py``).
+"""Scalar compressors (counterpart of ``gqx/compress/scalar.py``): identity,
+SignSGD, QSGD (TernGrad is QSGD with ``n_bit=1`` and a whole-tensor bucket)
+and the min/max probabilistic scalar quantizer that HSQ uses for its
+per-subvector norms.
+
+Every compressor works on the last axis, so a leading users axis needs
+nothing more: the batched calls are the single-vector ones.
 
 Only the m-order layout is ported: ``TransposedScalarCompressor`` exists in
 gqx to avoid TPU lane padding and gives the same ranges and levels.
@@ -14,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from gqx_torch.compress.api import Compressor, Sig, stochastic_increment
+from gqx_torch.compress.api import Compressor, Sig, stochastic_increment, subvector_dim
 
 
 class IdenticalCompressor(Compressor):
@@ -36,6 +39,74 @@ class IdenticalCompressor(Compressor):
     @property
     def wire_bits(self) -> int:
         return 32 * self.size
+
+
+class SignSGDCompressor(Compressor):
+    """sign(v) with 0 preserved; decompress is the identity (reference
+    signsgd_compressor.py:8-12).  The PS mean of the users' signs is then a
+    majority vote with ties preserved."""
+
+    def compress(self, vec, generator=None) -> Sig:
+        return {"signs": torch.sign(vec)}
+
+    def decompress(self, sig) -> torch.Tensor:
+        return sig["signs"]
+
+    compress_batch = compress
+    decompress_batch = decompress
+
+    @property
+    def wire_bits(self) -> int:
+        return self.size  # 1 bit per coordinate
+
+
+class QSGDCompressor(Compressor):
+    """Bucketed stochastic scalar quantization (reference
+    qsgd_compressor.py:42-71; gqx/compress/scalar.py:264-321).
+
+    Per bucket of ``dim`` coordinates: norm = max |v|, scaled = |v / norm| *
+    s with s = 2^n_bit, l = clamp(scaled, 0, s - 1) truncated, then l +=
+    (scaled - l > U) (so l may reach s), signs = v > 0.  decompress: l *
+    (2*signs - 1) * norm / s.  A zero bucket divides by 1 instead of 0 (the
+    reference gives NaN), so all-zero gradients round-trip to zero.  The op
+    order is gqx's, so the levels with ``random=False`` are bit-equal."""
+
+    def __init__(self, size: int, shape: Tuple[int, ...], n_bit: int, c_dim: int,
+                 random: bool = True):
+        super().__init__(size, shape)
+        self.n_bit = int(n_bit)
+        self.s = 2 ** int(n_bit)
+        self.random = bool(random)
+        self.dim = subvector_dim(size, c_dim)
+        self.M = size // self.dim
+
+    def compress(self, vec, generator=None) -> Sig:
+        lead = tuple(vec.shape[:vec.dim() - len(self.shape)])
+        rows = vec.reshape(lead + (self.M, self.dim))
+        norm = rows.abs().amax(-1)
+        safe_norm = torch.where(norm == 0.0, torch.ones_like(norm), norm)
+        scaled = torch.abs(rows / safe_norm[..., None]) * self.s
+        l = torch.clamp(scaled, 0, self.s - 1).to(torch.int32)
+        if self.random:
+            if generator is None:
+                raise ValueError("stochastic rounding needs a generator")
+            l = l + stochastic_increment(scaled, l, generator)
+        return {"norm": norm, "signs": (rows > 0).reshape(vec.shape), "l": l.reshape(vec.shape)}
+
+    def decompress(self, sig) -> torch.Tensor:
+        l = sig["l"]
+        lead = tuple(l.shape[:l.dim() - len(self.shape)])
+        scaled = l.to(torch.float32) * (2.0 * sig["signs"].to(torch.float32) - 1.0)
+        out = scaled.reshape(lead + (self.M, self.dim)) * sig["norm"][..., None] / self.s
+        return out.reshape(l.shape)
+
+    compress_batch = compress
+    decompress_batch = decompress
+
+    @property
+    def wire_bits(self) -> int:
+        # 1 sign + n_bit level per coordinate + a 32-bit norm per bucket
+        return self.size * (1 + self.n_bit) + 32 * self.M
 
 
 _CHUNK = 1024  # rows per first-stage block of the segmented min/max

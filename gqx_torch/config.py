@@ -96,8 +96,8 @@ class GQConfig:
     use_pallas: Optional[bool] = None
     hsq_passes: int = 1
     unit_dtype: str = "auto"
-    # gqx's folded-users trick is a faster route to the same per-user
-    # gradients; the port's per-user loop computes them either way
+    # True: one forward/backward on the folded (U*B) batch with per-user
+    # weight gradients (gqx's canonical step); False: a loop over the users
     folded_users: bool = True
     mesh_axis: str = "users"
     eval_batch_count: Optional[int] = None

@@ -16,6 +16,12 @@ Numerics carried over from gqx:
     into the running statistics with momentum 0.9 in flax's sense (gqx's
     folded BN, gqx/models/common.py:269-317 and folded.py:198-210).
 
+Inside a ``folded_users(U)`` context (``gqx_torch.models.folded``) the three
+layers take a folded (U*B, ...) batch: ``Conv2d`` and ``Dense`` compute the
+same forward and hand their weights' gradients out per user, and
+``BatchNorm`` normalizes each user's micro-batch with its own statistics.
+Parameter names and ``flax_path``s are the same on both routes.
+
 Every module carries ``flax_path``, its path segment in gqx's flax tree,
 from which ``gqx_torch.convert`` derives each parameter's gqx leaf path.
 """
@@ -28,6 +34,9 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gqx_torch.models.folded import (GroupedBatchNorm, SharedConv, SharedDense,
+                                     active_folded_users)
 
 
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -56,6 +65,11 @@ class Conv2d(nn.Module):
         k = self.weight.shape[-1]
         ph = same_pads(x.shape[-2], k, self.stride)
         pw = same_pads(x.shape[-1], k, self.stride)
+        folded = active_folded_users()
+        if folded is not None:
+            return SharedConv.apply(x.to(self.dtype), self.weight.to(self.dtype),
+                                    folded.ghost_for(self.weight), folded.users,
+                                    self.stride, ph + pw)
         if any(ph + pw):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), stride=self.stride)
@@ -79,6 +93,12 @@ class Dense(nn.Module):
 
     def forward(self, x):
         d = self.dtype
+        folded = active_folded_users()
+        if folded is not None:
+            # the bias has no ghost: its gradient is the folded total
+            y = SharedDense.apply(x.to(d), self.weight.to(d),
+                                  folded.ghost_for(self.weight), folded.users)
+            return y + self.bias.to(d)
         return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
 
 
@@ -110,55 +130,28 @@ class BatchNorm(nn.Module):
             y = (x.to(torch.float32) - self.running_mean[:, None, None]) * inv[:, None, None]
             y = y * self.weight[:, None, None] + self.bias[:, None, None]
             return y.to(x.dtype)
-        y, mean, var = _TrainBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        folded = active_folded_users()
+        if folded is None:
+            users, ghost_w, ghost_b = 1, None, None
+        else:
+            users = folded.users
+            ghost_w, ghost_b = folded.ghost_for(self.weight), folded.ghost_for(self.bias)
+        y, mean, var = GroupedBatchNorm.apply(x, self.weight, self.bias, ghost_w, ghost_b,
+                                              users, self.eps)
         self.batch_stats.append((mean, var))
         return y
 
 
-class _TrainBatchNorm(torch.autograd.Function):
-    """Training BN with gqx's backward (gqx/models/folded.py:262-293): the
-    analytic gradient from the sums s1 = sum(dy) and s2 = sum(dy * xhat),
-    dx = scale*inv*dy - s1*scale*inv/n - (x - mean)*s2*scale*inv^2/n (the
-    last term zero where the variance was clipped).  Autograd through the
-    fast-variance forward would instead subtract two large terms, E[x^2]'s
-    and E[x]^2's, and lose float32 digits wherever |mean| >> std."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps):
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-        inv = torch.rsqrt(var + eps)
-        y = (xf - mean[:, None, None]) * inv[:, None, None]
-        y = y * weight[:, None, None] + bias[:, None, None]
-        ctx.save_for_backward(x, mean, var, inv, weight)
-        ctx.mark_non_differentiable(mean, var)
-        return y.to(x.dtype), mean, var
-
-    @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
-        x, mean, var, inv, weight = ctx.saved_tensors
-        n = x.numel() // x.shape[1]
-        xc = x.to(mean.dtype) - mean[:, None, None]
-        dyf = dy.to(mean.dtype)
-        s1 = dyf.sum(dim=(0, 2, 3))
-        s2 = (dyf * (xc * inv[:, None, None])).sum(dim=(0, 2, 3))
-        g1 = weight * inv
-        g2 = s1 * g1 / n
-        g5 = (var > 0).to(var.dtype) * -(s2 * g1 * inv) / n
-        dx = g1[:, None, None] * dyf - g2[:, None, None] + xc * g5[:, None, None]
-        return dx.to(x.dtype), s2, s1, None
-
-
 @torch.no_grad()
 def update_running_stats(model: nn.Module) -> None:
-    """Fold the batch statistics recorded since the last call (one entry per
-    user) into each BatchNorm's running statistics: the mean over users,
-    with momentum 0.9 — gqx's update (gqx/models/common.py:313-316)."""
+    """Fold the batch statistics recorded since the last call (one (1, C)
+    entry per user from the per-user loop, or one (U, C) entry from the
+    folded step) into each BatchNorm's running statistics: the mean over
+    users, with momentum 0.9 — gqx's update (gqx/models/common.py:313-316)."""
     for mod in model.modules():
         if isinstance(mod, BatchNorm) and mod.batch_stats:
-            mean_u = torch.stack([m for m, _ in mod.batch_stats]).mean(0)
-            var_u = torch.stack([v for _, v in mod.batch_stats]).mean(0)
+            mean_u = torch.cat([m for m, _ in mod.batch_stats]).mean(0)
+            var_u = torch.cat([v for _, v in mod.batch_stats]).mean(0)
             m = mod.momentum
             mod.running_mean.copy_(m * mod.running_mean + (1 - m) * mean_u)
             mod.running_var.copy_(m * mod.running_var + (1 - m) * var_u)

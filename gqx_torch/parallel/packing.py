@@ -29,7 +29,8 @@ import torch
 
 from gqx_torch.compress import IdenticalCompressor, make_compressor
 from gqx_torch.compress.api import Compressor, subvector_dim
-from gqx_torch.compress.scalar import ProbabilisticScalarCompressor
+from gqx_torch.compress.scalar import (ProbabilisticScalarCompressor, QSGDCompressor,
+                                       SignSGDCompressor)
 from gqx_torch.compress.vq import HSQCompressor
 
 HSQ_ALIGN = 65536  # 512 x 128: the TPU kernels' tile, kept for an identical plan
@@ -142,6 +143,12 @@ def _packed_words(n_values: int, bits: int) -> int:
 def wire_bytes(comp: Compressor) -> int:
     if isinstance(comp, IdenticalCompressor):
         return 4 * comp.size
+    if isinstance(comp, SignSGDCompressor):
+        return 4 * _packed_words(comp.size, 2)    # {-1, 0, +1}: 2 bits per coordinate
+    if isinstance(comp, QSGDCompressor):
+        # n_bit plus one overflow bit under stochastic rounding (the level may reach s)
+        level_bits = comp.n_bit + (1 if comp.random else 0)
+        return 4 * (comp.M + _packed_words(comp.size, 1) + _packed_words(comp.size, level_bits))
     if isinstance(comp, ProbabilisticScalarCompressor):
         # n_bit plus one overflow bit under stochastic rounding
         level_bits = comp.n_bit + (1 if comp.random else 0)

@@ -222,3 +222,39 @@ def test_stochastic_draw_order_is_reproducible(rng):
     assert torch.equal(torch.randint(0, 1 << 31, (1,), generator=gen), outs[0][2])
     with pytest.raises(ValueError):
         agg.make_aggregator(cfg, plan)(port, agg.init_state(plan, USERS, True, True), 1.0, None)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(quantizer="qsgd", c_dim=128, n_bit=2), dict(quantizer="terngrad"),
+    dict(quantizer="sign"), dict(quantizer="qsgd", c_dim=128, n_bit=2, ef=True, two_phase=True),
+    dict(quantizer="sign", mode="ring", ef=True),
+], ids=["qsgd2bit", "terngrad", "sign", "qsgd2bit_ef_two_phase", "sign_ring_ef"])
+def test_scalar_compressors_aggregate_like_gqx(rng, kw):
+    """The comparison configurations' compressors under the PS (and one
+    ring) aggregator on the ResNet-18 cut, two steps with random=False:
+    the plans agree and every element is within 1e-6 of its unit's scale."""
+    kw = dict(num_users=USERS, random=False, **kw)
+    gcfg, cfg = GqxConfig(**kw), GQConfig(**kw)
+    gplan = gqx_plan_units(
+        _nest({p: jax.ShapeDtypeStruct(s, jnp.float32) for p, s in RESNET18_CUT.items()}), gcfg)
+    tplan = plan_units([(p, tuple(s[i] for i in _TO_PORT[len(s)])) for p, s in RESNET18_CUT.items()],
+                       {p: p for p in RESNET18_CUT}, cfg)
+    assert [u.sizes for u in tplan.units] == [u.sizes for u in gplan.units]
+    assert [type(u.compressor).__name__ for u in tplan.units] == \
+        [type(u.compressor).__name__ for u in gplan.units]
+    assert tplan.wire_bytes() == gplan.wire_bytes()
+    ef, two_phase = cfg.ef, cfg.two_phase
+    gstate = gqx_agg.init_state(gplan, USERS, ef, two_phase)
+    tstate = agg.init_state(tplan, USERS, ef, two_phase)
+    g_aggregate = gqx_agg.make_aggregator(gcfg, gplan)
+    t_aggregate = agg.make_aggregator(cfg, tplan)
+    for step, scale in enumerate(SCALES):
+        gj, gt = _grads(rng, RESNET18_CUT)
+        agg_j, gstate = g_aggregate(gj, gstate, jnp.float32(scale), jax.random.PRNGKey(step))
+        agg_t = t_aggregate(gt, tstate, scale, None)
+        for group_t, group_j in ((tplan.pack(agg_t), gplan.pack(agg_j)), (tstate.ef, gstate.ef),
+                                 (tstate.server_ef, gstate.server_ef)):
+            assert (group_t is None) == (group_j is None)
+            for t, j in zip(group_t or (), group_j or ()):
+                j = np.asarray(j)
+                assert np.abs(t.numpy() - j).max() <= 1e-6 * np.abs(j).max()

@@ -13,6 +13,7 @@ import gqx.compress.vq as gqx_vq
 from gqx.codebooks import get_codebook as gqx_get_codebook
 from gqx.codebooks import orthonormal_codebook as gqx_orthonormal
 from gqx.compress.api import subvector_dim as gqx_subvector_dim
+from gqx.compress import make_compressor as gqx_make_compressor
 from gqx.compress.scalar import ProbabilisticScalarCompressor as GqxScalar
 from gqx.compress.scalar import TransposedScalarCompressor as GqxScalarT
 from gqx.config import GQConfig as GqxConfig
@@ -21,10 +22,12 @@ from gqx.ops.pallas_hsq2 import bf16_exact_codebook as gqx_bf16_exact
 from gqx_torch.codebooks import get_codebook, orthonormal_codebook
 from gqx_torch.compress import make_compressor
 from gqx_torch.compress.api import stochastic_increment, subvector_dim
-from gqx_torch.compress.scalar import ProbabilisticScalarCompressor
+from gqx_torch.compress.scalar import (ProbabilisticScalarCompressor, QSGDCompressor,
+                                       SignSGDCompressor)
 from gqx_torch.config import GQConfig
 from gqx_torch.ops import rand as rand_ops
 from gqx_torch.ops.hsq_prep import bf16_exact_codebook
+from gqx_torch.parallel.packing import wire_bytes
 
 
 def interpret_kernels(monkeypatch):
@@ -214,11 +217,93 @@ def test_hsq_accounting_matches_gqx(monkeypatch):
 
 def test_unported_compressors_raise():
     cfg = GQConfig(quantizer="qsgd", c_dim=16, n_bit=2)
-    for name in ("qsgd", "terngrad", "sign", "topk", "pvq", "residual", "maurey"):
+    for name in ("topk", "pvq", "residual", "maurey"):
         with pytest.raises(NotImplementedError):
             make_compressor(name, 4096, (4096,), cfg)
+    for name, kind in (("qsgd", QSGDCompressor), ("terngrad", QSGDCompressor),
+                       ("sign", SignSGDCompressor)):
+        assert type(make_compressor(name, 4096, (4096,), cfg)) is kind
+    with pytest.raises(ValueError):
+        make_compressor("nosuch", 4096, (4096,), cfg)
     # a ragged size (dim 24) and a large codebook take the row-major kernels
     ragged = make_compressor("hsq", 4104, (4104,), GQConfig(quantizer="hsq", c_dim=16))
     assert ragged.dim == 24 and not ragged.flat_ok
     large = make_compressor("hsq", 4096, (4096,), GQConfig(quantizer="hsq", c_dim=8, k_bit=10))
     assert large.K == 1024 and not large.flat_ok and large.code_dtype == torch.int32
+
+
+# -- the scalar compressors of the canonical comparison ------------------------
+
+SCALAR_CONFIGS = {
+    "qsgd2bit": dict(quantizer="qsgd", c_dim=128, n_bit=2),
+    "qsgd_ragged": dict(quantizer="qsgd", c_dim=16, n_bit=4),     # 4104 -> buckets of 24
+    "terngrad": dict(quantizer="terngrad"),
+    "sign": dict(quantizer="sign"),
+}
+
+
+def _scalar_pair(which, size, random=False):
+    kw = dict(SCALAR_CONFIGS[which], random=random)
+    name = kw["quantizer"]
+    return (gqx_make_compressor(name, size, (size,), GqxConfig(**kw)),
+            make_compressor(name, size, (size,), GQConfig(**kw)))
+
+
+def _gradient_like(rng, users, size):
+    g = (rng.standard_normal((users, size)) * 10.0 ** rng.uniform(-4, 0, (users, 1))).astype(np.float32)
+    g[:, :300] = 0.0            # zero buckets (0/0 -> 0) and exact zeros for sign
+    g[0, 500] = -g[0, 500:640].max() * 2   # a negative bucket maximum
+    return g
+
+
+@pytest.mark.parametrize("which", list(SCALAR_CONFIGS))
+def test_scalar_compressors_match_gqx(rng, which):
+    """random=False: signature (levels, signs, norms) and round trip equal
+    gqx's bit for bit, for one vector and for a users axis; a zero bucket
+    round-trips to zero; the accounting is gqx's."""
+    users = 3
+    size = 4104 if which == "qsgd_ragged" else 4096
+    gq, pt = _scalar_pair(which, size)
+    g = _gradient_like(rng, users, size)
+    sig_j = jax.vmap(gq.compress)(jnp.asarray(g))
+    sig_t = pt.compress_batch(torch.from_numpy(g), None)
+    assert sorted(sig_t) == sorted(sig_j)
+    for key in sig_j:
+        np.testing.assert_array_equal(sig_t[key].numpy(), np.asarray(sig_j[key]), err_msg=key)
+    dec_j = np.asarray(jax.vmap(gq.decompress)(sig_j))
+    dec_t = pt.decompress_batch(sig_t)
+    np.testing.assert_array_equal(dec_t.numpy(), dec_j)
+    assert not dec_t[:, :300].any() and bool(torch.isfinite(dec_t).all())
+    assert torch.equal(pt.roundtrip(torch.from_numpy(g[1])), dec_t[1])
+    assert torch.equal(pt.roundtrip_batch(torch.from_numpy(g)), dec_t)
+    # the server mean: the same three addends, summed and divided in each
+    # framework's own way, so equal to a float32 rounding
+    np.testing.assert_allclose(pt.decode_mean(sig_t).numpy(),
+                               np.asarray(gq.decode_mean(sig_j)), rtol=3e-7, atol=1e-30)
+    assert pt.wire_bits == gq.wire_bits
+    if which != "sign":
+        assert (pt.dim, pt.M, pt.s) == (gq.dim, gq.M, gq.s)
+        assert int(sig_t["l"].max()) <= pt.s - 1    # no overflow without rounding up
+
+
+@pytest.mark.parametrize("which", list(SCALAR_CONFIGS))
+@pytest.mark.parametrize("random", [False, True])
+def test_scalar_wire_bytes_match_gqx(which, random):
+    from gqx.ops.wire import wire_bytes as gqx_wire_bytes
+
+    gq, pt = _scalar_pair(which, 4104 if which == "qsgd_ragged" else 4096, random)
+    assert wire_bytes(pt) == gqx_wire_bytes(gq)
+
+
+def test_qsgd_stochastic_rounding_unbiased_and_may_overflow(rng):
+    size = 128 * 600
+    pt = make_compressor("qsgd", size, (size,), GQConfig(quantizer="qsgd", c_dim=128, n_bit=2))
+    v = torch.from_numpy(rng.standard_normal((4, size)).astype(np.float32))
+    with pytest.raises(ValueError):
+        pt.compress(v, None)
+    sig = pt.compress(v, torch.Generator().manual_seed(0))
+    assert int(sig["l"].min()) >= 0 and int(sig["l"].max()) == pt.s   # the bucket maximum rounds up
+    err = (pt.decompress(sig) - v).mean()
+    assert abs(float(err)) < 2e-3                                     # E[l] = scaled: unbiased
+    again = pt.compress(v, torch.Generator().manual_seed(0))
+    assert torch.equal(sig["l"], again["l"])

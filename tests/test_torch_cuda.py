@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from gqx_torch.ops import dw as dw_ops
 from gqx_torch.ops import hsq as hsq_ops
 from gqx_torch.ops import hsq_rows
 from gqx_torch.ops import rand as rand_ops
@@ -225,3 +226,106 @@ def test_cuda_tensor_never_reaches_a_plain_version(cuda_device, monkeypatch):
     hsq_rows.hsq_decode(c, u, cb.cpu())
     hsq_ops.hsq_decode_flat(c, u, cb.cpu(), 16, 2)
     assert (dict(hsq_ops.launches), dict(hsq_rows.launches)) == before
+
+
+# -- the per-user conv weight gradient ----------------------------------------
+
+def _dw_tolerance(x, dy, users, kh, kw, ph, pw):
+    """The kernel and the plain version add the same float32 products (exact
+    for bf16 operands) in different orders: sqrt(n) * 2^-23 of the summed
+    magnitudes, n = B*H*W terms per sum."""
+    n = x.shape[0] // users * x.shape[2] * x.shape[3]
+    mag = dw_ops.per_user_dw_plain(x.abs(), dy.abs(), users, kh, kw, ph, pw)
+    return (n ** 0.5) * 2.0 ** -23 * mag + 1e-30
+
+
+@pytest.mark.parametrize("users,batch,ci,co,h,w,kh,kw,ph,pw,dtype", [
+    (2, 4, 16, 32, 8, 8, 3, 3, 1, 1, torch.float32),
+    (2, 4, 3, 64, 32, 32, 3, 3, 1, 1, torch.bfloat16),      # the stem: 16-wide input tile
+    (3, 5, 70, 65, 4, 4, 3, 3, 1, 1, torch.bfloat16),       # ragged channel tiles, 4x4 plane
+    (2, 3, 17, 9, 5, 7, 2, 2, 0, 1, torch.float32),         # even window, uneven pads
+    (1, 2, 5, 6, 6, 9, 5, 5, 3, 1, torch.bfloat16),         # pads that are not (k-1)/2
+    (2, 2, 8, 8, 3, 70, 1, 7, 0, 3, torch.float32),         # rows wider than one column chunk
+    (8, 32, 64, 64, 1, 1, 3, 2, 2, 0, torch.bfloat16),      # a 1x1 plane: only one tap is not zero
+    (1, 64, 20, 20, 2, 2, 4, 6, 1, 2, torch.float32),       # the batch split in many ranges
+])
+def test_cuda_per_user_dw_matches_plain(cuda_device, users, batch, ci, co, h, w, kh, kw, ph, pw,
+                                        dtype):
+    rng = np.random.default_rng(ci * co + h)
+    x = torch.from_numpy(rng.standard_normal((users * batch, ci, h, w)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((users * batch, co, h, w)).astype(np.float32))
+    x, dy = x.to(cuda_device, dtype), dy.to(cuda_device, dtype)
+    before = dw_ops.launches
+    got = dw_ops.per_user_dw(x, dy, users, kh, kw, ph, pw)
+    assert dw_ops.launches == before + 1
+    want = dw_ops.per_user_dw_plain(x, dy, users, kh, kw, ph, pw)
+    assert dw_ops.launches == before + 1                     # plain launches nothing
+    assert got.shape == (users, co, ci, kh, kw) and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= _dw_tolerance(x, dy, users, kh, kw, ph, pw)).all())
+    # the library's weight gradient of the same convolution, user by user
+    xp = torch.nn.functional.pad(x.float(), (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    for u in range(users):
+        sl = slice(u * batch, (u + 1) * batch)
+        lib = torch.nn.grad.conv2d_weight(xp[sl], (co, ci, kh, kw), dy[sl].float())
+        torch.testing.assert_close(got[u], lib, rtol=1e-4, atol=1e-4 * float(lib.abs().max()))
+    # the split reduction is combined in a fixed order: the same bits again
+    assert torch.equal(got, dw_ops.per_user_dw(x, dy, users, kh, kw, ph, pw))
+
+
+def test_cuda_per_user_dw_refuses_bad_input(cuda_device, monkeypatch):
+    x = torch.randn(4, 3, 8, 8, device=cuda_device)
+    dy = torch.randn(4, 5, 8, 8, device=cuda_device)
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x, dy[:, :, :4], 2, 3, 3, 1, 1)               # not the input's size
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x, dy.to(torch.bfloat16), 2, 3, 3, 1, 1)      # mixed types
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x.double(), dy.double(), 2, 3, 3, 1, 1)
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x, dy, 3, 3, 3, 1, 1)                         # 4 images, 3 users
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x, dy, 2, 3, 3, 3, 1)                         # pad outside the window
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x.permute(0, 1, 3, 2), dy, 2, 3, 3, 1, 1)     # not contiguous
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x, dy.cpu(), 2, 3, 3, 1, 1)
+    with pytest.raises(NotImplementedError):
+        dw_ops.per_user_dw(x, dy, 2, 1, 9, 0, 4)
+    monkeypatch.setattr(dw_ops, "per_user_dw_plain", None)   # a CUDA tensor never reaches it
+    assert dw_ops.per_user_dw(x, dy, 2, 3, 3, 1, 1).shape == (2, 5, 3, 3, 3)
+
+
+def test_cuda_folded_step_takes_the_kernel_and_matches_the_loop(cuda_device):
+    """A folded ResNet-18 step on the card launches the kernel once per
+    stride-1 3x3 conv (14) and none in the loop; with float32 compute the
+    two routes' gradients agree within 1e-3 of each leaf's norm (the card's
+    convolution algorithms differ between batch 8 and batch 4)."""
+    from gqx_torch.config import GQConfig
+    from gqx_torch.models import create_model
+    from gqx_torch.models.common import clear_batch_stats
+    from gqx_torch.train import (create_train_state, folded_user_grads, make_train_step,
+                                 user_grads)
+
+    cfg = GQConfig(network="resnet18", quantizer="hsq", c_dim=16, k_bit=8, n_bit=6,
+                   num_users=2, batch_size=4)
+    gen = torch.Generator().manual_seed(0)
+    model = create_model("resnet18", 10, "float32", gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "bn" in name and name.endswith("bias"):
+                p.uniform_(1.0, 2.0, generator=gen)      # ReLU inputs away from 0
+    state, plan = create_train_state(cfg, model, device="cuda")
+    x = torch.randn(2, 4, 3, 32, 32, generator=gen).to(cuda_device)
+    y = torch.randint(0, 10, (2, 4), generator=gen).to(cuda_device)
+    before = dw_ops.launches
+    _, folded = folded_user_grads(model, plan, plan.names, x, y)
+    assert dw_ops.launches == before + 14
+    clear_batch_stats(model)
+    _, looped = user_grads(model, plan.names, x, y)
+    assert dw_ops.launches == before + 14
+    for n in plan.names:
+        want = looped[n].mean(0, keepdim=True).expand_as(looped[n]) if n == "linear.bias" \
+            else looped[n]
+        assert float((folded[n] - want).norm()) <= 1e-3 * float(want.norm()), n
+    loss = make_train_step(cfg, plan)(state, x, y, 0.1, 5e-4, torch.Generator().manual_seed(1))
+    assert dw_ops.launches == before + 28 and bool(torch.isfinite(loss))

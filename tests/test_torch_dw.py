@@ -1,0 +1,136 @@
+"""The port's per-user conv weight gradient (its plain version, which is
+what the wrapper computes on the CPU) against gqx's three routines on the
+same numpy inputs: the shifted-slice einsum, the per-user vjp, and the
+Pallas kernel in interpret mode.
+
+gqx works in NHWC / HWIO, the port in NCHW / OIHW:
+    x   (U*B, H, W, Ci)      -> (U*B, Ci, H, W)
+    dy  (U*B, H, W, Co)      -> (U*B, Co, H, W)
+    dW  (U, kh, kw, Ci, Co)  -> (U, Co, Ci, kh, kw)
+
+Tolerance: every routine adds the same B*H*W float32 products per output
+in its own order, so they may differ by a few float32 roundings of the
+summed magnitudes: 1e-5 of sum |x| |dy| with float32 inputs (the products
+are rounded too) and 2e-6 with bf16 inputs (the products are exact).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gqx.ops.pallas_dw as gqx_dw
+from gqx.models import folded as gqx_folded
+from gqx_torch.ops import dw as dw_ops
+
+# users, batch, h, w, ci, co, kh, kw, (ph, pw) low pads
+CASES = {
+    "3x3": (2, 4, 8, 8, 16, 32, 3, 3, (1, 1)),
+    "stem_ci3": (2, 3, 8, 8, 3, 16, 3, 3, (1, 1)),
+    "plane4x4": (3, 2, 4, 4, 8, 8, 3, 3, (1, 1)),
+    "2x2_uneven": (2, 2, 6, 5, 4, 6, 2, 2, (0, 1)),
+    "5x5": (1, 3, 7, 7, 5, 4, 5, 5, (2, 2)),
+}
+
+
+def _inputs(rng, case, dtype):
+    users, batch, h, w, ci, co, kh, kw, (ph, pw) = CASES[case]
+    x = rng.standard_normal((users * batch, h, w, ci)).astype(np.float32)
+    dy = rng.standard_normal((users * batch, h, w, co)).astype(np.float32)
+    if dtype == "bfloat16":   # bf16-exact values, so both packages see the same numbers
+        x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+        dy = np.asarray(jnp.asarray(dy).astype(jnp.bfloat16).astype(jnp.float32))
+    padding = ((ph, kh - 1 - ph), (pw, kw - 1 - pw))
+    return x, dy, padding
+
+
+def _port(x, dy, case, dtype):
+    users, _, _, _, _, _, kh, kw, (ph, pw) = CASES[case]
+    t = getattr(torch, dtype)
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))).to(t)
+    dyt = torch.from_numpy(np.ascontiguousarray(dy.transpose(0, 3, 1, 2))).to(t)
+    got = dw_ops.per_user_dw(xt, dyt, users, kh, kw, ph, pw)      # CPU: the plain version
+    assert got.dtype == torch.float32
+    assert torch.equal(got, dw_ops.per_user_dw_plain(xt, dyt, users, kh, kw, ph, pw))
+    mag = dw_ops.per_user_dw_plain(xt.abs(), dyt.abs(), users, kh, kw, ph, pw)
+    return got.numpy(), mag.numpy()
+
+
+def _to_port_layout(dku):
+    return np.asarray(dku, dtype=np.float32).transpose(0, 4, 3, 1, 2)
+
+
+def _check(got, want, mag, dtype):
+    rel = 1e-5 if dtype == "float32" else 2e-6
+    assert got.shape == want.shape
+    assert np.all(np.abs(got - want) <= rel * mag + 1e-30), float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_matches_gqx_einsum(rng, case, dtype):
+    users, _, _, _, ci, co, kh, kw, _ = CASES[case]
+    x, dy, padding = _inputs(rng, case, dtype)
+    k = jnp.zeros((kh, kw, ci, co), jnp.float32)     # float32 kernel: no final rounding
+    want = gqx_folded._per_user_dw_einsum(jnp.asarray(x), jnp.asarray(dy), k, users,
+                                          (1, 1), padding)
+    got, mag = _port(x, dy, case, dtype)
+    _check(got, _to_port_layout(want), mag, dtype)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_matches_gqx_per_user_vjp(rng, case):
+    """gqx's 'bgc' branch: one conv vjp per user slice."""
+    users, _, _, _, ci, co, kh, kw, _ = CASES[case]
+    x, dy, padding = _inputs(rng, case, "float32")
+    k = jnp.zeros((kh, kw, ci, co), jnp.float32)
+    xu = jnp.asarray(x).reshape((users, -1) + x.shape[1:])
+    dyu = jnp.asarray(dy).reshape((users, -1) + dy.shape[1:])
+    want = jax.vmap(lambda a, b: jax.vjp(
+        lambda kk: gqx_folded._conv(a, kk, (1, 1), padding), k)[1](b)[0])(xu, dyu)
+    got, mag = _port(x, dy, case, "float32")
+    _check(got, _to_port_layout(want), mag, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["3x3", "stem_ci3", "plane4x4", "2x2_uneven"])
+def test_plain_matches_gqx_pallas_kernel_interpreted(rng, monkeypatch, case, dtype):
+    """gqx's TPU kernel, run on the CPU by giving its pallas_call
+    interpret=True for the length of the test."""
+    users, _, _, _, _, _, kh, kw, (ph, pw) = CASES[case]
+    x, dy, _ = _inputs(rng, case, dtype)
+    monkeypatch.setattr(gqx_dw.pl, "pallas_call",
+                        functools.partial(gqx_dw.pl.pallas_call, interpret=True))
+    jt = getattr(jnp, dtype)
+    want = gqx_dw.per_user_dw.__wrapped__(jnp.asarray(x).astype(jt), jnp.asarray(dy).astype(jt),
+                                          users, kh, kw, ph, pw)
+    assert want.dtype == jnp.float32
+    got, mag = _port(x, dy, case, dtype)
+    _check(got, _to_port_layout(want), mag, dtype)
+
+
+def test_wrapper_refuses_bad_input():
+    x, dy = torch.randn(4, 3, 8, 8), torch.randn(4, 5, 8, 8)
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x, dy[:, :, :4], 2, 3, 3, 1, 1)          # not the input's size
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x, dy.to(torch.bfloat16), 2, 3, 3, 1, 1)  # mixed types
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x, dy, 3, 3, 3, 1, 1)                    # 4 images, 3 users
+    with pytest.raises(ValueError):
+        dw_ops.per_user_dw(x, dy, 2, 3, 3, 3, 1)                    # pad outside the window
+    assert dw_ops.launches == 0 or not torch.cuda.is_available()
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 32, 64, 64, 3, 132), 11), ((8, 32, 3, 64, 3, 132), 11),
+    ((8, 32, 128, 128, 3, 132), 8), ((8, 32, 512, 512, 3, 132), 1), ((2, 5, 8, 8, 3, 132), 5)])
+def test_batch_splits_fill_the_card_and_leave_no_range_empty(shape, want):
+    splits = dw_ops.batch_splits(*shape)
+    assert splits == want
+    batch = shape[1]
+    per = -(-batch // splits)
+    assert 1 <= splits <= batch and (splits - 1) * per < batch

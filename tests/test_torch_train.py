@@ -2,8 +2,8 @@
 
 gqx runs its canonical step (folded users, Pallas HSQ kernels in interpret
 mode, ``use_pallas=True`` planning) on the CPU in float32 with
-``random=False``; the port runs its step on the CPU through the plain
-versions of its kernels.
+``random=False``; the port runs its step, folded users by default as well,
+on the CPU through the plain versions of its kernels.
 """
 
 import ast
@@ -43,10 +43,11 @@ def interpret_kernels(monkeypatch):
     monkeypatch.setattr(gqx_vq, "_hsq_kernels", lambda: shim)
 
 
-def _setup(name, rng, **extra):
+def _setup(name, rng, port_extra=None, **extra):
     shape = (28, 28, 1) if name == "fcn" else (32, 32, 3)
     kw = dict(network=name, quantizer="hsq", c_dim=16, k_bit=8, n_bit=6,
-              num_users=USERS, batch_size=BATCH, random=False, hsq_passes=1, **extra)
+              num_users=USERS, batch_size=BATCH, random=False, hsq_passes=1)
+    kw.update(extra)
     gcfg = GqxConfig(**kw)
     gcfg.use_pallas = True
     gmodel = gqx_create_model(name, 10)
@@ -62,7 +63,7 @@ def _setup(name, rng, **extra):
         gstate.params))
     model = create_model(name, 10)
     _load(model, gstate)
-    cfg = GQConfig(**kw)
+    cfg = GQConfig(**kw, **(port_extra or {}))
     state, plan = create_train_state(cfg, model, device="cpu")
     step = make_train_step(cfg, plan)
     x = rng.standard_normal((2, USERS, BATCH) + shape).astype(np.float32)
@@ -138,6 +139,65 @@ def test_two_hsq_steps_match_gqx(rng, interpret_kernels, name):
             # a flipped subvector changes its elements by a quantization
             # step, which then moves every gradient of the next step; the
             # second step starts again from gqx's state
+            _load(model, gstate, state)
+
+
+def test_two_looped_fcn_steps_match_gqx(rng, interpret_kernels, monkeypatch):
+    """``folded_users=False``: the per-user loop gives the same two steps,
+    and never enters the folded route."""
+    import gqx_torch.train as train_mod
+
+    monkeypatch.setattr(train_mod, "folded_user_grads", None)
+    gstate, gstep, state, plan, step, x, y = _setup("fcn", rng,
+                                                    port_extra=dict(folded_users=False))
+    for s in range(2):
+        gstate = _run_both(gstate, gstep, state, step, x[s], y[s])
+        flipped, _ = _compare(state.model, state, plan, gstate, with_trace=True)
+        assert flipped == 0
+
+
+def test_folded_step_is_the_default_and_runs_one_forward(rng, monkeypatch):
+    """The default config takes the folded route: one forward on the (U*B)
+    batch per step, where the loop runs U."""
+    calls = []
+    for folded, want in ((True, [USERS * BATCH]), (False, [BATCH] * USERS)):
+        cfg = GQConfig(network="fcn", quantizer="sgd", num_users=USERS, batch_size=BATCH)
+        assert cfg.folded_users
+        cfg.folded_users = folded
+        model = create_model("fcn", 10)
+        state, plan = create_train_state(cfg, model, device="cpu")
+        model.register_forward_pre_hook(lambda m, args: calls.append(args[0].shape[0]))
+        calls.clear()
+        make_train_step(cfg, plan)(state, torch.randn(USERS, BATCH, 1, 28, 28),
+                                   torch.randint(0, 10, (USERS, BATCH)), 0.1, 5e-4, None)
+        assert calls == want
+
+
+@pytest.mark.parametrize("extra", [
+    dict(quantizer="sgd"), dict(quantizer="qsgd", c_dim=128, n_bit=2),
+    dict(quantizer="terngrad"), dict(quantizer="sign"),
+], ids=["sgd", "qsgd2bit", "terngrad", "sign"])
+def test_two_fcn_steps_of_the_comparison_configs_match_gqx(rng, extra):
+    """The four other configurations of the canonical comparison, two folded
+    steps each with random=False: parameters and momentum within 1e-5 (or
+    1e-6 of the leaf's largest magnitude, for elements that cancel to near
+    zero), except at most 1e-4 of the elements where a level or sign sat on
+    a boundary and fell to the other side in the two packages."""
+    gstate, gstep, state, plan, step, x, y = _setup("fcn", rng, **extra)
+    model = state.model
+    for s in range(2):
+        gstate = _run_both(gstate, gstep, state, step, x[s], y[s])
+        want, _ = from_jax(model, _np(gstate.params))
+        want_t, _ = from_jax(model, _np(gstate.opt_state.trace))
+        bad = total = 0
+        for n, p in model.named_parameters():
+            for got, ref in ((p.detach(), want[n]), (state.trace[n], want_t[n])):
+                tol = RTOL * ref.abs() + 1e-6 * ref.abs().max() + ATOL
+                bad += int(((got - ref).abs() > tol).sum())
+                total += ref.numel()
+        print(f"{extra['quantizer']} step {s + 1}: {bad} of {total} elements differ")
+        assert bad <= (0 if extra["quantizer"] == "sgd" else 1e-4 * total)
+        if bad:
             _load(model, gstate, state)
 
 
