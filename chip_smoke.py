@@ -5,7 +5,7 @@
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions.
-2. Builds the seven kernels from gqx_torch/csrc with nvcc (one process per
+2. Builds the kernels from gqx_torch/csrc with nvcc (one process per
    source, all at once) and prints the build time.
 3. Holds each kernel against its plain PyTorch version at the shapes the
    training paths give it (the ResNet-50 HSQ unit, 8 users): the flat
@@ -13,8 +13,10 @@
    dim 16 / K 256, the row-major encode and decode at dim 8 / K 1024, plus
    a ragged dim and a codebook larger than shared memory; the per-user conv
    weight gradient at the five 3x3 geometries of ResNet-50 (8 users x 32,
-   bf16) and at three odd ones; and times kernel, plain version and, where
-   one exists, the PyTorch call computing the same function.
+   bf16: the stem on the CUDA-core kernel, the four others on the
+   tensor-core kernel) and at odd ones on both; and times kernel, plain
+   version and, where one exists, the PyTorch call computing the same
+   function.
 4. Runs five training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute,
    hsq_passes=1, random weights and data from --seed), each for one
    warm-up step and --steps steps with the launch counters set to 0 just
@@ -25,7 +27,8 @@
      P3  P1 as a chain ring;
      P4  HSQ c_dim 8 / k_bit 10 (the row-major kernels);
      P5  P1 with folded_users=False (the per-user loop), one step.
-   The counters must equal what the code implies.  The aggregate of one
+   The counters must equal what the code implies (the per-user conv weight
+   gradient: 13 tensor-core and 1 CUDA-core launch per folded step).  The aggregate of one
    more step of each of P1-P4 (and P2's new error-feedback state) is
    recomputed on the CPU through the plain versions from the same
    gradients, state and seed, and compared.
@@ -83,6 +86,26 @@ def cuda_ms(fn, n: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / n
 
 
+def device_ms(fn, n: int) -> float:
+    """Device time of one call of ``fn``: the kernels' time summed by
+    torch.profiler over ``n`` calls, over ``n``.  Unlike CUDA events around
+    the calls, it does not count the time the card waits for the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    if total == 0.0:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / n
+
+
 def bound(bytes_moved: float, ops: float, peak_ops: float):
     t_bytes = bytes_moved / HBM_BPS * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -104,11 +127,12 @@ PATHS = {
 EF_EPOCH = 1.0   # the error-feedback scale is config.ef_scale(EF_EPOCH)
 
 # the stride-1 same-size 3x3 convs of CIFAR ResNet-50, whose per-user weight
-# gradient the folded step takes from the per_user_dw kernel:
-# (Ci, Co, H = W, convs of that geometry)
+# gradient the folded step takes from the per_user_dw kernels:
+# (Ci, Co, H = W, convs of that geometry); the stem's 3 input channels take
+# the CUDA-core kernel, the others the tensor-core kernel
 DW_GEOMETRIES = ((3, 64, 32, 1), (64, 64, 32, 3), (128, 128, 16, 3),
                  (256, 256, 8, 5), (512, 512, 4, 2))
-DW_PER_STEP = sum(g[3] for g in DW_GEOMETRIES)
+DW_PER_STEP = {"per_user_dw": 1, "per_user_dw_tc": sum(g[3] for g in DW_GEOMETRIES[1:])}
 
 # the other configurations of the canonical comparison
 COMPARISON = {
@@ -432,16 +456,22 @@ def rows_kernel_phase(seed: int):
 
 def dw_kernel_phase(seed: int):
     """The per-user conv weight gradient against its plain version: the five
-    3x3 geometries of ResNet-50 at 8 users x 32 images in bf16, then three
-    odd ones (float32 inputs; the stem's 3 channels in float32 with an even
-    window and uneven pads; a 5x5 window with uneven pads on a 7x9 plane).
+    3x3 geometries of ResNet-50 at 8 users x 32 images in bf16 (the stem's 3
+    input channels take the CUDA-core kernel, the others the tensor-core
+    kernel, as the per-route counters must show), then odd ones: float32
+    inputs and the stem's 3 channels in float32 with an even window and
+    uneven pads (CUDA cores); a 5x5 window with uneven pads on a 7x9 plane
+    with ragged channel tiles (tensor cores).
 
     Tolerance: kernel and plain version add the same float32 products (exact
     for bf16 operands) in different orders, so they may differ by
     sqrt(n) * 2^-23 of the summed magnitudes, n = B*H*W terms per sum.
 
-    The entry's times are per training step: each geometry's time weighted by
-    how many convs of the step have it."""
+    Returns one entry per route; its times are per training step: each
+    geometry's time weighted by how many convs of the step have it.  They are
+    device times from torch.profiler: the library's per-user calls keep the
+    card waiting on the host, so CUDA events around them measure the host
+    (both are printed)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -458,8 +488,14 @@ def dw_kernel_phase(seed: int):
         return x, dy * 1e-3
 
     def check(x, dy, u, kh, kw, ph, pw, name):
+        want_route = dw_ops.route(x.dtype, x.shape[1], kw)
+        before = dict(dw_ops.launches_by_route)
         got = dw_ops.per_user_dw(x, dy, u, kh, kw, ph, pw)
         again = dw_ops.per_user_dw(x, dy, u, kh, kw, ph, pw)
+        routed = {k: v - before[k] for k, v in dw_ops.launches_by_route.items()}
+        if routed[want_route] != 2 or sum(routed.values()) != 2:
+            raise AssertionError(f"per_user_dw {name}: launches by route {routed}, "
+                                 f"expected 2 on {want_route}")
         want = dw_ops.per_user_dw_plain(x, dy, u, kh, kw, ph, pw)
         mag = dw_ops.per_user_dw_plain(x.abs(), dy.abs(), u, kh, kw, ph, pw)
         torch.cuda.synchronize()
@@ -471,10 +507,10 @@ def dw_kernel_phase(seed: int):
         if not torch.equal(got, again):
             raise AssertionError(f"per_user_dw {name}: two runs gave different bits")
         rel = float((err / mag.clamp_min(1e-30)).max())
-        log(f"[per_user_dw {name}] max |out - plain| {float(err.max()):.3e} "
+        log(f"[per_user_dw {name}] route {want_route}: max |out - plain| {float(err.max()):.3e} "
             f"({rel:.2e} of the summed magnitudes; allowed {n ** 0.5 * 2.0 ** -23:.2e}); "
             "two runs bit-equal")
-        return float(err.max())
+        return want_route, float(err.max())
 
     def library(x, dy, u, kh, kw, ph, pw):
         xp = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph))
@@ -483,31 +519,45 @@ def dw_kernel_phase(seed: int):
         return torch.stack([torch.nn.grad.conv2d_weight(xp[i * b:(i + 1) * b], shape,
                                                         dy[i * b:(i + 1) * b]) for i in range(u)])
 
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    worst, by, geometries = 0.0, {"bytes": 0.0, "operations": 0.0}, []
+    routes = {r: dict(tot=dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, events_ms=0.0,
+                               library_events_ms=0.0), worst=0.0,
+                      by={"bytes": 0.0, "operations": 0.0}, geometries=[])
+              for r in (dw_ops.CUDA_CORE, dw_ops.TENSOR_CORE)}
     for ci, co, hw, count in DW_GEOMETRIES:
         x, dy = make(ci, co, hw, hw, torch.bfloat16)
         name = f"{ci}->{co} @{hw}x{hw} bf16"
-        worst = max(worst, check(x, dy, users, 3, 3, 1, 1, name))
+        which, err = check(x, dy, users, 3, 3, 1, 1, name)
+        r = routes[which]
+        r["worst"] = max(r["worst"], err)
         lib = library(x, dy, users, 3, 3, 1, 1).float()
         ref = dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1)
         if not bool(((lib - ref).abs() <= 2.0 ** -7 * ref.abs().max()).all()):
             raise AssertionError(f"per_user_dw {name}: the library call computes something else")
-        n = users * batch * hw * hw
-        b_ms, b_by = bound((x.numel() + dy.numel()) * 2 + users * co * ci * 9 * 4,
-                           2.0 * 9 * n * ci * co, BF16_FLOPS)
-        g = dict(shape=name, per_step=count, bound_ms=b_ms, bound_by=b_by,
-                 ms=cuda_ms(lambda: dw_ops.per_user_dw(x, dy, users, 3, 3, 1, 1), 10),
-                 plain_ms=cuda_ms(lambda: dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1), 3),
-                 library_ms=cuda_ms(lambda: library(x, dy, users, 3, 3, 1, 1), 5))
-        log(f"[per_user_dw {name}] {g['ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}), "
-            f"plain {g['plain_ms']:.3f} ms, library (conv2d_weight per user) "
-            f"{g['library_ms']:.3f} ms; x{count} per step")
-        geometries.append(g)
-        by[b_by] += count * b_ms
-        for key in tot:
-            tot[key] += count * g[key]
+        flop = 2.0 * 9 * users * batch * hw * hw * ci * co
+        b_ms, b_by = bound((x.numel() + dy.numel()) * 2 + users * co * ci * 9 * 4, flop, BF16_FLOPS)
+        kernel = lambda: dw_ops.per_user_dw(x, dy, users, 3, 3, 1, 1)
+        plain = lambda: dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1)
+        call = lambda: library(x, dy, users, 3, 3, 1, 1)
+        # device time (torch.profiler); the events' time per call beside it
+        g = dict(shape=name, route=which, per_step=count, bound_ms=b_ms, bound_by=b_by,
+                 ms=device_ms(kernel, 20), plain_ms=device_ms(plain, 3),
+                 library_ms=device_ms(call, 5), events_ms=cuda_ms(kernel, 20),
+                 library_events_ms=cuda_ms(call, 5))
+        g["tflops"] = flop / g["ms"] * 1e-9
+        log(f"[per_user_dw {name}] route {which}: {g['ms']:.4f} ms = {g['tflops']:.1f} TFLOP/s "
+            f"(bound {b_ms:.4f} ms by {b_by}), plain {g['plain_ms']:.3f} ms, library "
+            f"(conv2d_weight per user) {g['library_ms']:.4f} ms; by events: kernel "
+            f"{g['events_ms']:.4f}, library {g['library_events_ms']:.4f} ms; x{count} per step")
+        r["geometries"].append(g)
+        r["by"][b_by] += count * b_ms
+        for key in r["tot"]:
+            r["tot"][key] += count * g[key]
         del x, dy, lib, ref
+    step = {key: sum(r["tot"][key] for r in routes.values())
+            for key in ("ms", "library_ms", "events_ms", "library_events_ms", "bound_ms")}
+    log(f"[per_user_dw per step] both routes, 14 convs, device time: {step['ms']:.4f} ms "
+        f"(bound {step['bound_ms']:.4f} ms), library {step['library_ms']:.4f} ms; by events: "
+        f"{step['events_ms']:.4f} ms, library {step['library_events_ms']:.4f} ms")
     x, dy = make(64, 64, 32, 32, torch.float32)
     check(x, dy, users, 3, 3, 1, 1, "64->64 @32x32 float32")
     log(f"[per_user_dw 64->64 @32x32 float32] "
@@ -516,10 +566,16 @@ def dw_kernel_phase(seed: int):
     check(x, dy, 3, 2, 2, 0, 1, "3->20 @32x32 float32 2x2 pads (0,1)")
     x, dy = make(24, 70, 7, 9, torch.bfloat16, n=2 * 7)
     check(x, dy, 2, 5, 5, 3, 1, "24->70 @7x9 bf16 5x5 pads (3,1)")
-    entry = dict(name="per_user_dw", route="cuda", source="gqx_torch/csrc/per_user_dw.cu",
-                 replaces="gqx/ops/pallas_dw.py:128", max_abs_err=worst,
-                 bound_by=max(by, key=by.get), geometries=geometries, **tot)
-    return {"per_user_dw": entry}
+    sources = {dw_ops.CUDA_CORE: ("per_user_dw", "gqx_torch/csrc/per_user_dw.cu"),
+               dw_ops.TENSOR_CORE: ("per_user_dw_tc", "gqx_torch/csrc/per_user_dw_tc.cu")}
+    entries = {}
+    for which, (name, source) in sources.items():
+        r = routes[which]
+        entries[name] = dict(name=name, route="cuda", source=source,
+                             replaces="gqx/ops/pallas_dw.py:128", max_abs_err=r["worst"],
+                             bound_by=max(r["by"], key=r["by"].get),
+                             geometries=r["geometries"], **r["tot"])
+    return entries
 
 
 def log_entries(entries):
@@ -590,9 +646,14 @@ def counters(reset=False):
                 table[key] = 0
         rand_ops.launches = 0
         dw_ops.launches = 0
+        for key in dw_ops.launches_by_route:
+            dw_ops.launches_by_route[key] = 0
         return None
+    by_route = dw_ops.launches_by_route
+    if dw_ops.launches != sum(by_route.values()):
+        raise AssertionError(f"per_user_dw: {dw_ops.launches} launches, by route {by_route}")
     return {**hsq_ops.launches, **hsq_rows.launches, "philox_uniform": rand_ops.launches,
-            "per_user_dw": dw_ops.launches}
+            "per_user_dw": by_route[dw_ops.CUDA_CORE], "per_user_dw_tc": by_route[dw_ops.TENSOR_CORE]}
 
 
 def per_user_grads(cfg, state, plan, x, y):
@@ -968,8 +1029,8 @@ def main():
         for kernel, count in launches.items():
             n = per_step.get(kernel, 0)
             want = steps * hsq_units * (cfg.num_users if n == "U" else n)
-            if kernel == "per_user_dw":
-                want = steps * DW_PER_STEP if cfg.folded_users else 0
+            if kernel in DW_PER_STEP:
+                want = steps * DW_PER_STEP[kernel] if cfg.folded_users else 0
             if count != want:
                 raise AssertionError(f"{name}: {kernel} launched {count} times in "
                                      f"{steps} steps, expected {want}")
@@ -994,7 +1055,7 @@ def main():
     comparison_phase(args.seed, args.steps)
 
     order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
-             "hsq_rows_encode", "hsq_rows_decode", "per_user_dw")
+             "hsq_rows_encode", "hsq_rows_decode", "per_user_dw", "per_user_dw_tc")
     print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

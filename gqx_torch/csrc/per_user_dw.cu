@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_user_dw_sum.cuh"
+
 namespace {
 
 constexpr int kTX = 16;          // thread columns: input-channel groups
@@ -231,16 +233,6 @@ per_user_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// out[e] = part[0][e] + part[1][e] + ... in that order
-__global__ void sum_splits_kernel(const float* __restrict__ part, int splits,
-                                  int64_t n, float* __restrict__ out) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float s = part[e];
-  for (int k = 1; k < splits; ++k) s += part[(int64_t)k * n + e];
-  out[e] = s;
-}
-
 template <typename T, int KW, int CIT>
 cudaError_t launch(const T* x, const T* dy, float* out, Geometry g,
                    cudaStream_t stream) {
@@ -316,11 +308,7 @@ int gqx_per_user_dw(const void* x, const void* dy, int is_bf16, int users,
       : launch_any(static_cast<const float*>(x), static_cast<const float*>(dy),
                    dst, kw, g, s);
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const int64_t n = (int64_t)users * co * ci * kh * kw;
-  const int threads = 256;
-  sum_splits_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, s>>>(
-      scratch, splits, n, out);
-  return (int)cudaGetLastError();
+  return (int)sum_splits(scratch, splits, (int64_t)users * co * ci * kh * kw, out, s);
 }
 
 const char* gqx_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

@@ -15,26 +15,43 @@ float32 in the weight's OIHW order.  Operands enter as float32 and the sum
 is float32; the caller rounds the result to its compute dtype where gqx
 does.
 
-``per_user_dw`` computes the plain version for CPU tensors and launches the
-CUDA kernel (``csrc/per_user_dw.cu``) for CUDA tensors; there is no fallback
-from one to the other.
+``per_user_dw`` computes the plain version for CPU tensors and launches a
+CUDA kernel for CUDA tensors; there is no fallback from one to the other.
+Which kernel, ``route`` decides from the dtype and the shapes alone:
+
+- ``"tensor_core"`` (``csrc/per_user_dw_tc.cu``): bf16 with at least 16
+  input channels and kw <= 7, on bf16 ``mma.sync`` with float32
+  accumulation;
+- ``"cuda_core"`` (``csrc/per_user_dw.cu``): float32 (the tensor cores would
+  round its products, which the float32 FMAs keep exact) and inputs of few
+  channels (the stem's 3), on float32 FMAs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from gqx_torch.ops import _build
 
-#: launches of the CUDA kernel (not of the plain version)
-launches = 0
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 
-MAX_KW = 7            # the kernel keeps a kw-wide window in registers
-_TILE_CO = 64         # output channels per block
-_BLOCKS_PER_SM = 2    # blocks wanted per multiprocessor before the batch is split
+#: launches of either CUDA kernel (not of the plain version), and by route;
+#: ``launches`` is always the sum of ``launches_by_route``
+launches = 0
+launches_by_route = {TENSOR_CORE: 0, CUDA_CORE: 0}
+
+MAX_KW = 7            # the kernels keep a kw-wide window of taps per block
+_TILE_CO = 64         # output channels per block, both routes
+# per route: the library, its C entry, blocks per multiprocessor (kBlocksPerSM
+# of the tensor-core kernel) and taps of a row per block
+_ROUTES = {
+    CUDA_CORE: ("per_user_dw", "gqx_per_user_dw", 2, MAX_KW),
+    TENSOR_CORE: ("per_user_dw_tc", "gqx_per_user_dw_tc", 3, 3),
+}
 
 
 def _check(x, dy, users, kh, kw, ph, pw):
@@ -69,18 +86,27 @@ def per_user_dw_plain(x: torch.Tensor, dy: torch.Tensor, users: int,
     return torch.stack(taps, dim=-1).reshape(users, co, ci, kh, kw)
 
 
-def batch_splits(users: int, batch: int, ci: int, co: int, kh: int, sm_count: int) -> int:
-    """Into how many ranges the kernel cuts a user's images.  The blocks,
-    one per (user, tap row, channel tile, range), run ``_BLOCKS_PER_SM`` per
-    multiprocessor in waves; a last wave that is nearly empty costs as much
-    as a full one.  So: the fewest ranges (at most 16) that fill the card at
-    least once and whose waves are at least 90% full, counting a range as
-    long as its longest; failing that, the best filled.  A function of the
-    shapes and the card only, so the order of the sum, and with it every bit
-    of the result, repeats."""
-    ci_tile = 16 if ci <= 16 else 64
-    blocks = users * kh * -(-ci // ci_tile) * -(-co // _TILE_CO)
-    slots = _BLOCKS_PER_SM * sm_count
+def route(dtype: torch.dtype, ci: int, kw: int) -> str:
+    """The kernel that a CUDA call takes, from its dtype and shapes alone."""
+    if dtype == torch.bfloat16 and ci >= 16 and kw <= MAX_KW:
+        return TENSOR_CORE
+    return CUDA_CORE
+
+
+def batch_splits(users: int, batch: int, ci: int, co: int, kh: int, sm_count: int,
+                 which: str = CUDA_CORE, kw: int = 3) -> int:
+    """Into how many ranges route ``which`` cuts a user's images.  The
+    blocks, one per (user, tap row, group of taps, channel tile, range), run
+    a fixed number per multiprocessor in waves; a last wave that is nearly
+    empty costs as much as a full one.  So: the fewest ranges (at most 16)
+    that fill the card at least once and whose waves are at least 90% full,
+    counting a range as long as its longest; failing that, the best filled.
+    A function of the shapes and the card only, so the order of the sum, and
+    with it every bit of the result, repeats."""
+    _, _, per_sm, taps = _ROUTES[which]
+    ci_tile = 16 if which == CUDA_CORE and ci <= 16 else 64
+    blocks = users * kh * -(-kw // taps) * -(-ci // ci_tile) * -(-co // _TILE_CO)
+    slots = per_sm * sm_count
     best, best_fill = 1, 0.0
     for want in range(1, min(batch, 16) + 1):
         per = -(-batch // want)
@@ -93,6 +119,24 @@ def batch_splits(users: int, batch: int, ci: int, co: int, kh: int, sm_count: in
         if fill >= 0.9:
             break
     return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(which: str):
+    """(library, C entry with its argument types) of route ``which``."""
+    name, entry = _ROUTES[which][:2]
+    lib = _build.load(name)
+    fn = getattr(lib, entry)
+    ints = 12 if which == CUDA_CORE else 11
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * ints + \
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def _kernel(x, dy, users, kh, kw, ph, pw):
@@ -109,22 +153,21 @@ def _kernel(x, dy, users, kh, kw, ph, pw):
         return out
     if n == 0 or h * w == 0:
         return out.zero_()
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = batch_splits(users, batch, ci, co, kh, sm_count)
+    which = route(x.dtype, ci, kw)
+    splits = batch_splits(users, batch, ci, co, kh, _sm_count(x.device), which, kw)
     scratch = (torch.empty((splits,) + tuple(out.shape), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
-    lib = _build.load("per_user_dw")
-    fn = lib.gqx_per_user_dw
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12 + \
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), dy.data_ptr(), int(x.dtype == torch.bfloat16), users, batch,
+    lib, fn = _entry(which)
+    # the CUDA-core entry also takes the dtype; the tensor-core one is bf16 only
+    dtype_arg = [int(x.dtype == torch.bfloat16)] if which == CUDA_CORE else []
+    err = fn(x.data_ptr(), dy.data_ptr(), *dtype_arg, users, batch,
              ci, co, h, w, kh, kw, ph, pw, splits,
              scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
              _build.stream_ptr(x.device))
-    _build.check(lib, err, "per_user_dw")
+    _build.check(lib, err, f"per_user_dw ({which})")
     global launches
     launches += 1
+    launches_by_route[which] += 1
     return out
 
 

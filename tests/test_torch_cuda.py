@@ -239,25 +239,37 @@ def _dw_tolerance(x, dy, users, kh, kw, ph, pw):
     return (n ** 0.5) * 2.0 ** -23 * mag + 1e-30
 
 
-@pytest.mark.parametrize("users,batch,ci,co,h,w,kh,kw,ph,pw,dtype", [
-    (2, 4, 16, 32, 8, 8, 3, 3, 1, 1, torch.float32),
-    (2, 4, 3, 64, 32, 32, 3, 3, 1, 1, torch.bfloat16),      # the stem: 16-wide input tile
-    (3, 5, 70, 65, 4, 4, 3, 3, 1, 1, torch.bfloat16),       # ragged channel tiles, 4x4 plane
-    (2, 3, 17, 9, 5, 7, 2, 2, 0, 1, torch.float32),         # even window, uneven pads
-    (1, 2, 5, 6, 6, 9, 5, 5, 3, 1, torch.bfloat16),         # pads that are not (k-1)/2
-    (2, 2, 8, 8, 3, 70, 1, 7, 0, 3, torch.float32),         # rows wider than one column chunk
-    (8, 32, 64, 64, 1, 1, 3, 2, 2, 0, torch.bfloat16),      # a 1x1 plane: only one tap is not zero
-    (1, 64, 20, 20, 2, 2, 4, 6, 1, 2, torch.float32),       # the batch split in many ranges
+TC, CC = dw_ops.TENSOR_CORE, dw_ops.CUDA_CORE
+
+
+@pytest.mark.parametrize("users,batch,ci,co,h,w,kh,kw,ph,pw,dtype,route", [
+    (2, 4, 16, 32, 8, 8, 3, 3, 1, 1, torch.float32, CC),
+    (2, 4, 3, 64, 32, 32, 3, 3, 1, 1, torch.bfloat16, CC),      # the stem: 16-wide input tile
+    (3, 5, 70, 65, 4, 4, 3, 3, 1, 1, torch.bfloat16, TC),       # ragged channel tiles, 4x4 plane
+    (2, 3, 17, 9, 5, 7, 2, 2, 0, 1, torch.float32, CC),         # even window, uneven pads
+    (1, 2, 5, 6, 6, 9, 5, 5, 3, 1, torch.bfloat16, CC),         # pads that are not (k-1)/2
+    (2, 2, 8, 8, 3, 70, 1, 7, 0, 3, torch.float32, CC),         # rows wider than one column chunk
+    (8, 32, 64, 64, 1, 1, 3, 2, 2, 0, torch.bfloat16, TC),      # a 1x1 plane: only one tap is not zero
+    (1, 64, 20, 20, 2, 2, 4, 6, 1, 2, torch.float32, CC),       # the batch split in many ranges
+    # the tensor-core route where it is weakest
+    (8, 4, 64, 64, 4, 4, 3, 3, 1, 1, torch.bfloat16, TC),       # W = 4: 4-pixel loads, 2 of 6 columns halo
+    (2, 3, 24, 70, 7, 7, 3, 3, 1, 1, torch.bfloat16, TC),       # W = 7: 1-pixel loads; ci 24, co 70 ragged
+    (2, 2, 24, 70, 7, 9, 5, 5, 3, 1, torch.bfloat16, TC),       # kw = 5 (two groups of taps), pads (3, 1)
+    (1, 64, 32, 16, 8, 8, 3, 3, 1, 1, torch.bfloat16, TC),      # the batch split in 16 ranges
+    (2, 2, 16, 8, 3, 200, 1, 7, 0, 3, torch.bfloat16, TC),      # column chunks: a halo of data
+    (2, 3, 20, 20, 5, 6, 2, 1, 1, 0, torch.bfloat16, TC),       # kw = 1
 ])
 def test_cuda_per_user_dw_matches_plain(cuda_device, users, batch, ci, co, h, w, kh, kw, ph, pw,
-                                        dtype):
+                                        dtype, route):
     rng = np.random.default_rng(ci * co + h)
     x = torch.from_numpy(rng.standard_normal((users * batch, ci, h, w)).astype(np.float32))
     dy = torch.from_numpy(rng.standard_normal((users * batch, co, h, w)).astype(np.float32))
     x, dy = x.to(cuda_device, dtype), dy.to(cuda_device, dtype)
-    before = dw_ops.launches
+    assert dw_ops.route(dtype, ci, kw) == route
+    before, by_route = dw_ops.launches, dict(dw_ops.launches_by_route)
     got = dw_ops.per_user_dw(x, dy, users, kh, kw, ph, pw)
     assert dw_ops.launches == before + 1
+    assert dw_ops.launches_by_route == {**by_route, route: by_route[route] + 1}
     want = dw_ops.per_user_dw_plain(x, dy, users, kh, kw, ph, pw)
     assert dw_ops.launches == before + 1                     # plain launches nothing
     assert got.shape == (users, co, ci, kh, kw) and got.dtype == torch.float32
@@ -270,6 +282,7 @@ def test_cuda_per_user_dw_matches_plain(cuda_device, users, batch, ci, co, h, w,
         torch.testing.assert_close(got[u], lib, rtol=1e-4, atol=1e-4 * float(lib.abs().max()))
     # the split reduction is combined in a fixed order: the same bits again
     assert torch.equal(got, dw_ops.per_user_dw(x, dy, users, kh, kw, ph, pw))
+    assert dw_ops.launches_by_route[route] == by_route[route] + 2
 
 
 def test_cuda_per_user_dw_refuses_bad_input(cuda_device, monkeypatch):
@@ -293,11 +306,13 @@ def test_cuda_per_user_dw_refuses_bad_input(cuda_device, monkeypatch):
         dw_ops.per_user_dw(x, dy, 2, 1, 9, 0, 4)
     monkeypatch.setattr(dw_ops, "per_user_dw_plain", None)   # a CUDA tensor never reaches it
     assert dw_ops.per_user_dw(x, dy, 2, 3, 3, 1, 1).shape == (2, 5, 3, 3, 3)
+    xb = torch.randn(4, 16, 8, 8, device=cuda_device, dtype=torch.bfloat16)
+    assert dw_ops.per_user_dw(xb, dy.bfloat16(), 2, 3, 3, 1, 1).shape == (2, 5, 16, 3, 3)
 
 
 def test_cuda_folded_step_takes_the_kernel_and_matches_the_loop(cuda_device):
-    """A folded ResNet-18 step on the card launches the kernel once per
-    stride-1 3x3 conv (14) and none in the loop; with float32 compute the
+    """A folded ResNet-18 step on the card launches the CUDA-core kernel once
+    per stride-1 3x3 conv (14) and none in the loop; with float32 compute the
     two routes' gradients agree within 1e-3 of each leaf's norm (the card's
     convolution algorithms differ between batch 8 and batch 4)."""
     from gqx_torch.config import GQConfig
@@ -317,9 +332,10 @@ def test_cuda_folded_step_takes_the_kernel_and_matches_the_loop(cuda_device):
     state, plan = create_train_state(cfg, model, device="cuda")
     x = torch.randn(2, 4, 3, 32, 32, generator=gen).to(cuda_device)
     y = torch.randint(0, 10, (2, 4), generator=gen).to(cuda_device)
-    before = dw_ops.launches
+    before, cuda_core = dw_ops.launches, dw_ops.launches_by_route[dw_ops.CUDA_CORE]
     _, folded = folded_user_grads(model, plan, plan.names, x, y)
     assert dw_ops.launches == before + 14
+    assert dw_ops.launches_by_route[dw_ops.CUDA_CORE] == cuda_core + 14     # float32: no tensor cores
     clear_batch_stats(model)
     _, looped = user_grads(model, plan.names, x, y)
     assert dw_ops.launches == before + 14

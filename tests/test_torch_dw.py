@@ -134,3 +134,29 @@ def test_batch_splits_fill_the_card_and_leave_no_range_empty(shape, want):
     batch = shape[1]
     per = -(-batch // splits)
     assert 1 <= splits <= batch and (splits - 1) * per < batch
+
+
+@pytest.mark.parametrize("dtype,ci,kw,want", [
+    (torch.bfloat16, 64, 3, "tensor_core"),    # ResNet-50's 3x3 convs past the stem
+    (torch.bfloat16, 16, 7, "tensor_core"),    # the narrowest input and widest window it takes
+    (torch.bfloat16, 512, 1, "tensor_core"),
+    (torch.bfloat16, 3, 3, "cuda_core"),       # the stem
+    (torch.bfloat16, 15, 3, "cuda_core"),
+    (torch.float32, 64, 3, "cuda_core"),       # float32 keeps its exact FMAs
+    (torch.float32, 3, 3, "cuda_core"),
+    (torch.bfloat16, 64, 8, "cuda_core"),      # beyond MAX_KW: the CUDA-core wrapper raises
+])
+def test_route_is_a_function_of_dtype_and_shapes(dtype, ci, kw, want):
+    assert dw_ops.route(dtype, ci, kw) == want
+
+
+@pytest.mark.parametrize("shape,kw,want", [
+    ((8, 32, 64, 64, 3, 132), 3, 16), ((8, 32, 512, 512, 3, 132), 3, 1),
+    ((1, 64, 32, 16, 3, 132), 3, 16), ((2, 2, 24, 70, 5, 132), 5, 2)])
+def test_tensor_core_batch_splits(shape, kw, want):
+    """The tensor-core route's blocks: one per (user, tap row, group of up
+    to three taps, 64 x 64 channel tile, range)."""
+    splits = dw_ops.batch_splits(*shape, which=dw_ops.TENSOR_CORE, kw=kw)
+    assert splits == want
+    per = -(-shape[1] // splits)
+    assert 1 <= splits <= shape[1] and (splits - 1) * per < shape[1]
