@@ -9,9 +9,11 @@
    source, all at once) and prints the build time.
 3. Holds each kernel against its plain PyTorch version at the shapes the
    training paths give it (the ResNet-50 HSQ unit, 8 users): the flat
-   encode, the fused decode-mean, the uniforms and the per-user decode at
-   dim 16 / K 256, the row-major encode and decode at dim 8 / K 1024, plus
-   a ragged dim and a codebook larger than shared memory; the per-user conv
+   encode (on the tensor cores; at P1's, P2's and P3's shapes, timed by
+   device time with CUDA events beside it), the fused decode-mean, the
+   uniforms and the per-user decode at dim 16 / K 256, the row-major
+   encode and decode at dim 8 / K 1024, plus a ragged dim and a codebook
+   larger than shared memory; the per-user conv
    weight gradient at the five 3x3 geometries of ResNet-50 (8 users x 32,
    bf16: the stem on the CUDA-core kernel, the four others on the
    tensor-core kernel) and at odd ones on both; and times kernel, plain
@@ -225,6 +227,56 @@ def unit_input(unit, users: int, seed: int):
     return x
 
 
+def encode_timing(label, x, comp, passes):
+    """K1's device time (torch.profiler) and events at one shape, against its
+    bound and its plain version; returns one shape's record."""
+    import torch
+
+    from gqx_torch.ops import hsq as hsq_ops
+
+    cb = comp.codebook(x.device)
+    rows, k = x.numel() // comp.dim, comp.K
+    kernel = lambda: hsq_ops.hsq_encode_flat(x, cb, comp.dim, passes, comp.code_dtype)
+    plain = lambda: hsq_ops.hsq_encode_flat_plain(x, cb, comp.dim, passes, comp.code_dtype)
+    contractions = 2 if passes == 2 and x.dtype == torch.float32 else 1
+    flop = 2.0 * rows * k * comp.dim * contractions
+    code_bytes = torch.empty(0, dtype=comp.code_dtype).element_size()
+    b_ms, b_by = bound(x.numel() * x.element_size() + rows * (4 + code_bytes) + k * comp.dim * 4,
+                       flop, BF16_FLOPS)
+    rec = dict(shape=label, rows=rows, ms=device_ms(kernel, 20), events_ms=cuda_ms(kernel, 20),
+               plain_ms=device_ms(plain, 2), bound_ms=b_ms, bound_by=b_by)
+    rec["tflops"] = flop / rec["ms"] * 1e-9
+    log(f"[hsq_encode {label}] {rows} rows, {str(x.dtype)[6:]}, passes={passes}: "
+        f"{rec['ms']:.4f} ms device time = {rec['tflops']:.1f} TFLOP/s (events {rec['events_ms']:.4f} "
+        f"ms; bound {b_ms:.4f} ms by {b_by}), plain {rec['plain_ms']:.3f} ms")
+    return rec
+
+
+def encode_phase(comp, x32, xb):
+    """K1, the tensor-core encode, against its plain version and timed at the
+    shapes the paths give it: P1 (bf16, passes=1, every user at once), P2
+    (the float32 error-feedback units, passes=1), P3 (one user per hop: bf16
+    at hop 0, float32 after), and gqx's strict-parity passes=2 on float32.
+    Returns (u, codes) at P1's shape and the ``kernels`` entry, whose times
+    are P1's."""
+    u_k, c_k, err = check_encode(xb, comp, 1, "hsq_encode P1 bf16 passes=1")
+    shapes = [encode_timing("P1", xb, comp, 1)]
+    for label, x, passes in (("P2", x32, 1), ("P3 hop 0", xb[0], 1),
+                             ("P3 later hops", x32[0], 1), ("float32 passes=2", x32, 2)):
+        _, _, e = check_encode(x, comp, passes, f"hsq_encode {label} {str(x.dtype)[6:]} "
+                                                f"passes={passes}")
+        err = max(err, e)
+        shapes.append(encode_timing(label, x, comp, passes))
+    p1 = shapes[0]
+    entry = dict(
+        name="hsq_encode", route="cuda", source="gqx_torch/csrc/hsq_encode.cu",
+        engine="tensor cores: mma.sync m16n8k16 bf16 -> float32, selection from the accumulators",
+        replaces="gqx/ops/pallas_hsq4.py:87", max_abs_err=err, ms=p1["ms"],
+        events_ms=p1["events_ms"], plain_ms=p1["plain_ms"], bound_ms=p1["bound_ms"],
+        bound_by=p1["bound_by"], library_ms=None, shapes=shapes)
+    return u_k, c_k, entry
+
+
 def kernel_phase(seed: int):
     """Each flat-layout kernel (and the uniforms) against its plain version
     at the canonical unit's shapes."""
@@ -244,20 +296,8 @@ def kernel_phase(seed: int):
     cb = comp.codebook(dev)
     entries = {}
 
-    # K1: canonical bf16 input, passes=1
-    u_k, c_k, err1 = check_encode(xb, comp, 1, "hsq_encode bf16 passes=1")
-    ms = cuda_ms(lambda: hsq_ops.hsq_encode_flat(xb, cb, dim, 1, comp.code_dtype), 10)
-    plain = cuda_ms(lambda: hsq_ops.hsq_encode_flat_plain(xb, cb, dim, 1, comp.code_dtype), 2)
-    b, by = bound(users * size * 2 + users * m * 5 + k * dim * 4,
-                  2.0 * users * m * k * dim, BF16_FLOPS)
-    entries["hsq_encode"] = dict(
-        name="hsq_encode", route="cuda", source="gqx_torch/csrc/hsq_encode.cu",
-        replaces="gqx/ops/pallas_hsq4.py:87", max_abs_err=err1, ms=ms, plain_ms=plain,
-        bound_ms=b, bound_by=by, library_ms=None)
-    # K1 at passes=2 on a float32 input (gqx's strict-parity mode)
-    _, _, err2 = check_encode(x32, comp, 2, "hsq_encode f32 passes=2")
-    ms2 = cuda_ms(lambda: hsq_ops.hsq_encode_flat(x32, cb, dim, 2, comp.code_dtype), 5)
-    log(f"[hsq_encode f32 passes=2] {ms2:.3f} ms")
+    # K1 at the shapes of the main paths, then gqx's strict-parity passes=2
+    u_k, c_k, entries["hsq_encode"] = encode_phase(comp, x32, xb)
 
     # K3: the norm quantizer's uniforms for every user of the unit
     n = users * m

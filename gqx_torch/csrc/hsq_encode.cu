@@ -1,34 +1,69 @@
-// HSQ encode for Hopper (sm_90a): per user and per dim-wide subvector row,
-// the inner products with the K codewords and the selection of the signed
-// product of largest magnitude.
+// HSQ encode on Hopper's tensor cores (sm_90a): per user and per dim-wide
+// subvector row, the inner products with the K codewords and the selection
+// of the signed product of largest magnitude.
 //
 // Replaces: gqx/ops/pallas_hsq4.py::hsq_encode_flat (_encode_kernel, _select),
 // the TPU kernel that contracts a block-diagonal (128, B*K) expansion of the
-// codebook on the matrix unit.  That expansion exists only for the TPU's
-// 128-lane layout and is not rebuilt here.
+// codebook on the matrix unit (_dot_t, bf16 operands, float32 accumulation).
+// That expansion exists only for the TPU's 128-lane layout and is not rebuilt
+// here; the contraction itself goes to the tensor cores, as on the TPU.
 //
 // What it computes, bit for bit where the arithmetic allows:
 //   x is rounded as the TPU kernel rounds it: passes=1 -> bf16(x);
 //   passes=2 -> bf16(x) and bf16(x - bf16(x)) contracted separately and
-//   added (about 16 mantissa bits, not full fp32).  The codebook is
-//   bf16-exact, so every product is exact in fp32; sums are fp32.
+//   added in float32 (a bf16 input has no low part: it is taken as it is).
+//   The codebook is bf16-exact, so every product is exact in float32; only
+//   the order and rounding of the float32 additions inside the mma differ
+//   from the plain version.
 //   Selection (pallas_hsq4.py:40-51): pos = max p, neg = min p,
 //   u = pos if pos >= -neg else neg, code = first index whose p equals u.
 //   A zero row gives code 0 and u 0.
 //
-// What bounds it on the H100: per row, K*dim fused multiply-adds (4,096 at
-// K=256, dim=16) against dim*2 bytes read (bf16 input), i.e. ~256 FMA per
-// byte on the CUDA cores: the fp32 pipe, not memory, is the limit
-// (8 users x 1.47M rows x 4,096 FMA = 48 G FMA at 33.5 T FMA/s ~ 1.4 ms).
-// The same work on the bf16 tensor cores would be bandwidth-bound.
+// What bounds it on the H100: the 3.0 G products of a call at ResNet-50's
+// unit (8 x 1,470,464 rows of 16, K = 256), not its bytes (376 MB of bf16 in,
+// 59 MB out: 0.13 ms) nor its 96 GFLOP (0.10 ms at the bf16 peak).  With a
+// contraction depth of 16, every product leaves the tensor cores as its own
+// float32 register, and the selection must read each one.  Measured by
+// gqx_torch/scripts/encode_probe.py (PERF.md): the loads, the mma and a plain
+// sum of the products take about half of the kernel's time, with or
+// without the loads; the selection takes the other half, in proportion to
+// its instructions per product.
 //
-// Design: one thread per row, the codebook in shared memory (K*dim*4 bytes,
-// 16 KB at K=256, dim=16), read as float4 broadcasts (every thread of a warp
-// reads the same codeword), the row kept in registers, the running max/min
-// and their first indices tracked in the k loop, so the selection is fused
-// and the (rows, K) product never leaves registers.  Blocks stride over the
-// rows, so each block loads the codebook once.  A wgmma/TMA version is later
-// work.
+// Design:
+// - One mma.sync m16n8k16 (bf16 -> float32) per 16 rows x 8 codewords.  The
+//   contraction index k is a free permutation of the dims, so lane
+//   (g, t) = (lane / 4, lane % 4) holds the dim/4 contiguous dims
+//   t*dim/4 ... of its rows g and g + 8, and a warp's loads cover whole rows
+//   (bf16 in 4-byte pieces, which land straight in the mma's A registers).
+//   dim 4 and 8 fill k with zeros, dim 32 takes two k-steps into one
+//   accumulator.  The codebook's B fragments use the same permutation.
+// - The codebook is staged once per block into shared memory in fragment
+//   order (8 bytes per lane and k-step, one conflict-free LDS.64), zero past
+//   K (a zero codeword never beats a real one and never comes first).  A
+//   warp holds kTiles row tiles (64 rows) and reuses each B fragment for all
+//   of them; blocks stride over the rows.
+// - The selection is fused from the accumulator fragments in one pass.  Per
+//   row, a lane sees codewords 8j + 2t and 8j + 2t + 1 of each tile j.  Over
+//   groups of kGroup tiles (4 products) it keeps the running maximum m of
+//   |p| (3 FMNMX with the |.| modifier per group), and where a group raises
+//   it (FSETP), the group's index and its 4 products (predicated moves: 11
+//   instructions per 4 products in all).  A = the quad's maximum of m; a
+//   lane with m == A finds its first p == +A and first p == -A among the
+//   kept products; u = +A if the quad has one (max p >= -min p), else -A,
+//   and the code is the quad's first such index.  This is exact unless a
+//   lane's later group only ties m (FSETP, the 11th instruction): a -A
+//   kept first could hide a later +A.  Then the warp takes the exact scan
+//   (zero rows and exact ties only): the same mma again (the same bits)
+//   and every product compared with +A and -A.  The rule is the TPU
+//   kernel's: +v wins an exact +v/-v tie, the first index an equal pair.
+// - Tried on the card and not kept (probes whose code is not kept): two
+//   passes (max |p|, then the mma again and a compare per product, with a
+//   branch where it hits) were much slower, because in nearly every tile
+//   some lane of a warp hits; one tile per group was slower; 4 tiles per
+//   group, loads one task ahead, fewer row tiles per warp, and wgmma
+//   (m64n128k16, A from registers, the same bits) hardly moved the time.
+// - Each lane writes the u and code of one row tile's two rows per quad
+//   after the quad reduction (kTiles = 4: lane t writes tile t).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,106 +71,381 @@
 
 namespace {
 
+constexpr int kWarps = 8;                 // warps per block
+constexpr int kTiles = 4;                 // 16-row tiles a warp holds at once
+constexpr int kRowsPerWarp = 16 * kTiles;
+constexpr int kGroup = 2;                 // codeword tiles tracked together
+constexpr unsigned kNone = 0xffffffffu;   // no index found
+
+// How a lane holds a row: DIM/4 contiguous values as packed bf16 pairs
+// (words), 2 words per k-step of 16.
+template <int DIM>
+struct Frag {
+  static constexpr int kPer = DIM / 4;                    // values per row and lane
+  static constexpr int kWords = kPer >= 2 ? kPer / 2 : 1;  // 32-bit words of two bf16
+  static constexpr int kSteps = (kWords + 1) / 2;         // k-steps of the mma
+};
+
+// A lane's load of one row: DIM/4 values of TIn, in pieces of at most 16 bytes.
+template <int DIM, typename TIn>
+struct RowLoad {
+  static constexpr int kBytes = DIM / 4 * (int)sizeof(TIn);
+  // bf16 in 4-byte pieces: two rows' words then land straight in the mma's
+  // A registers (8-byte pieces make the compiler move them at every mma)
+  static constexpr int kMaxPiece = sizeof(TIn) == 2 ? 4 : 16;
+  static constexpr int kPiece = kBytes < kMaxPiece ? kBytes : kMaxPiece;
+  static constexpr int kRaw = kBytes >= 4 ? kBytes / 4 : 1;   // 32-bit words loaded
+};
+
+template <int N> struct Bits;
+template <> struct Bits<2> { using T = unsigned short; };
+template <> struct Bits<4> { using T = unsigned; };
+template <> struct Bits<8> { using T = uint2; };
+template <> struct Bits<16> { using T = uint4; };
+
+template <int N>
+union Piece {
+  typename Bits<N>::T v;
+  unsigned w[N >= 4 ? N / 4 : 1];
+};
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <int DIM>
-__device__ __forceinline__ float dot_row(const float* x, const float* c) {
-  float p = 0.0f;
-  if constexpr (DIM % 4 == 0) {
+template <int DIM, typename TIn>
+__device__ __forceinline__ void load_row(const TIn* p, bool valid,
+                                         unsigned (&raw)[RowLoad<DIM, TIn>::kRaw]) {
+  using L = RowLoad<DIM, TIn>;
+  constexpr int kPerPiece = L::kPiece >= 4 ? L::kPiece / 4 : 1;
 #pragma unroll
-    for (int t = 0; t < DIM; t += 4) {
-      const float4 c4 = *reinterpret_cast<const float4*>(c + t);
-      p = fmaf(x[t + 0], c4.x, p);
-      p = fmaf(x[t + 1], c4.y, p);
-      p = fmaf(x[t + 2], c4.z, p);
-      p = fmaf(x[t + 3], c4.w, p);
-    }
+  for (int i = 0; i < L::kRaw; ++i) raw[i] = 0u;
+  if (!valid) return;
+  const auto* src = reinterpret_cast<const typename Bits<L::kPiece>::T*>(p);
+#pragma unroll
+  for (int i = 0; i < L::kBytes / L::kPiece; ++i) {
+    Piece<L::kPiece> c;
+    c.w[0] = 0u;
+    c.v = src[i];
+#pragma unroll
+    for (int w = 0; w < kPerPiece; ++w) raw[i * kPerPiece + w] = c.w[w];
+  }
+}
+
+// One row's A-operand words: hi = bf16(x) and, for PASSES == 2, lo =
+// bf16(x - bf16(x)).  A bf16 input is its own hi.
+template <int DIM, int PASSES, typename TIn>
+__device__ __forceinline__ void row_words(const unsigned (&raw)[RowLoad<DIM, TIn>::kRaw],
+                                          unsigned (&hi)[Frag<DIM>::kWords],
+                                          unsigned (&lo)[Frag<DIM>::kWords]) {
+  using F = Frag<DIM>;
+  if constexpr (sizeof(TIn) == 2) {
+#pragma unroll
+    for (int w = 0; w < F::kWords; ++w) hi[w] = raw[w];
   } else {
 #pragma unroll
-    for (int t = 0; t < DIM; ++t) p = fmaf(x[t], c[t], p);
+    for (int w = 0; w < F::kWords; ++w) {
+      const float v0 = __uint_as_float(raw[2 * w]);
+      const float v1 = 2 * w + 1 < F::kPer ? __uint_as_float(raw[2 * w + 1]) : 0.0f;
+      hi[w] = pack_bf16(v0, v1);
+      if constexpr (PASSES == 2) lo[w] = pack_bf16(v0 - bf16_round(v0), v1 - bf16_round(v1));
+    }
   }
-  return p;
+}
+
+// d = A B (a zero accumulator) and d += A B, bf16 operands, float32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y), "f"(0.0f));
+}
+
+__device__ __forceinline__ void mma_bf16_acc(float (&d)[4], const unsigned (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// One row tile's A fragments per k-step, for bf16(x) and, at PASSES == 2,
+// bf16(x - bf16(x)): rows g (w[0]) and g + 8 (w[1]) in the mma's register order.
+template <int DIM>
+__device__ __forceinline__ void a_fragments(const unsigned (&w)[2][Frag<DIM>::kWords],
+                                            unsigned (&a)[Frag<DIM>::kSteps][4]) {
+  using F = Frag<DIM>;
+#pragma unroll
+  for (int s = 0; s < F::kSteps; ++s) {
+    const bool two = 2 * s + 1 < F::kWords;
+    a[s][0] = w[0][2 * s];
+    a[s][1] = w[1][2 * s];
+    a[s][2] = two ? w[0][2 * s + 1] : 0u;
+    a[s][3] = two ? w[1][2 * s + 1] : 0u;
+  }
+}
+
+// p[0], p[1] = row g with codewords 8j + 2t, 8j + 2t + 1; p[2], p[3] = row g + 8.
+template <int DIM, int PASSES>
+__device__ __forceinline__ void products(float (&p)[4],
+                                         const unsigned (&a)[PASSES][Frag<DIM>::kSteps][4],
+                                         const uint2 (&b)[Frag<DIM>::kSteps]) {
+  using F = Frag<DIM>;
+  mma_bf16(p, a[0][0], b[0]);
+#pragma unroll
+  for (int s = 1; s < F::kSteps; ++s) mma_bf16_acc(p, a[0][s], b[s]);
+  if constexpr (PASSES == 2) {
+    float q[4];
+    mma_bf16(q, a[1][0], b[0]);
+#pragma unroll
+    for (int s = 1; s < F::kSteps; ++s) mma_bf16_acc(q, a[1][s], b[s]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] += q[i];
+  }
+}
+
+template <int DIM>
+__device__ __forceinline__ void b_fragments(const uint2* frag, int j, int lane,
+                                            uint2 (&b)[Frag<DIM>::kSteps]) {
+#pragma unroll
+  for (int s = 0; s < Frag<DIM>::kSteps; ++s) b[s] = frag[(j * Frag<DIM>::kSteps + s) * 32 + lane];
+}
+
+// The first index with p == +a goes to pos; the first with p == -a to neg.
+// Once pos is found, later codewords cannot win: cmp becomes NaN.
+__device__ __forceinline__ void record(float p, float a, unsigned idx, unsigned& pos,
+                                       unsigned& neg, float& cmp) {
+  if (p == a) {
+    pos = min(pos, idx);
+    cmp = __int_as_float(0x7fc00000);
+  } else if (p == -a) {
+    neg = min(neg, idx);
+  }
 }
 
 template <int DIM, int PASSES, typename TIn, typename TCode>
-__global__ void __launch_bounds__(256) hsq_encode_kernel(
-    const TIn* __restrict__ x, const float* __restrict__ codebook, int k,
-    int64_t rows, float* __restrict__ u_out,
-    TCode* __restrict__ codes_out) {
-  extern __shared__ float4 smem4[];
-  float* cb = reinterpret_cast<float*>(smem4);
-  for (int i = threadIdx.x; i < k * DIM; i += blockDim.x) cb[i] = codebook[i];
+__global__ void __launch_bounds__(kWarps * 32, 2) hsq_encode_tc_kernel(
+    const TIn* __restrict__ x, const float* __restrict__ codebook, int k, int64_t rows,
+    float* __restrict__ u_out, TCode* __restrict__ codes_out) {
+  using F = Frag<DIM>;
+  using L = RowLoad<DIM, TIn>;
+  extern __shared__ uint2 frag[];   // [tile j][k-step s][lane]: b0, b1
+  const int kt = (k + 8 * kGroup - 1) / (8 * kGroup) * kGroup;   // tiles, zero past K
+
+  // the codebook in B-fragment order: lane (g, t) of tile j holds codeword
+  // 8j + g, values t*DIM/4 ... as bf16 pairs (exact: the codebook is bf16-exact)
+  for (int i = threadIdx.x; i < kt * F::kSteps * 32; i += blockDim.x) {
+    const int lane = i & 31, s = (i >> 5) % F::kSteps, n = (i >> 5) / F::kSteps * 8 + (lane >> 2);
+    unsigned w[2] = {0u, 0u};
+    if (n < k) {
+      const float* c = codebook + (int64_t)n * DIM + (lane & 3) * F::kPer;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = (2 * s + h) * 2;
+        w[h] = pack_bf16(e < F::kPer ? c[e] : 0.0f, e + 1 < F::kPer ? c[e + 1] : 0.0f);
+      }
+    }
+    frag[i] = make_uint2(w[0], w[1]);
+  }
   __syncthreads();
 
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
-       r += stride) {
-    // row r = user * m + row of that user; every user's unit is contiguous
-    // and m * DIM long, so row r starts at element r * DIM
-    const TIn* xr = x + r * DIM;
-    float xh[DIM];
-    float xl[PASSES == 2 ? DIM : 1];
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int64_t tasks = (rows + kRowsPerWarp - 1) / kRowsPerWarp;
+  for (int64_t task = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); task < tasks;
+       task += (int64_t)gridDim.x * kWarps) {
+    const int64_t r0 = task * kRowsPerWarp + (lane >> 2);   // row g of tile 0
+    unsigned a[kTiles][PASSES][F::kSteps][4];
 #pragma unroll
-    for (int t = 0; t < DIM; ++t) {
-      const float v = to_float(xr[t]);
-      xh[t] = bf16_round(v);
-      if constexpr (PASSES == 2) xl[t] = bf16_round(v - xh[t]);
+    for (int r = 0; r < kTiles; ++r) {
+      unsigned hi[2][F::kWords], lo[2][F::kWords];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = r0 + 16 * r + 8 * h;
+        unsigned raw[L::kRaw];
+        load_row<DIM, TIn>(x + row * DIM + t * F::kPer, row < rows, raw);
+        row_words<DIM, PASSES, TIn>(raw, hi[h], lo[h]);
+      }
+      a_fragments<DIM>(hi, a[r][0]);
+      if constexpr (PASSES == 2) a_fragments<DIM>(lo, a[r][PASSES - 1]);
     }
-    float best_max = -__int_as_float(0x7f800000), best_min = __int_as_float(0x7f800000);
-    int imax = 0, imin = 0;
-    for (int c = 0; c < k; ++c) {
-      const float* cw = cb + c * DIM;
-      float p = dot_row<DIM>(xh, cw);
-      if constexpr (PASSES == 2) p = p + dot_row<DIM>(xl, cw);
-      if (p > best_max) { best_max = p; imax = c; }
-      if (p < best_min) { best_min = p; imin = c; }
+
+    // One pass over the codebook: per row, the lane's largest |p| (m), the
+    // first group of kGroup tiles where it was reached (jg) and that group's
+    // products.  A later group that only equals m (a tie) sends the warp to
+    // the exact scan.
+    constexpr int kKept = 2 * kGroup;
+    float m[kTiles][2], kept[kTiles][2][kKept];
+    unsigned jg[kTiles][2];
+    bool tie = false;
+#pragma unroll
+    for (int r = 0; r < kTiles; ++r) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m[r][h] = -1.0f;
+        jg[r][h] = 0u;
+#pragma unroll
+        for (int i = 0; i < kKept; ++i) kept[r][h][i] = 0.0f;
+      }
     }
-    const bool take_pos = best_max >= -best_min;
-    u_out[r] = take_pos ? best_max : best_min;
-    codes_out[r] = (TCode)(take_pos ? imax : imin);
+    for (int j = 0; j < kt; j += kGroup) {
+      uint2 b[kGroup][F::kSteps];
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) b_fragments<DIM>(frag, j + q, lane, b[q]);
+#pragma unroll
+      for (int r = 0; r < kTiles; ++r) {
+        float p[kGroup][4];
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q) products<DIM, PASSES>(p[q], a[r], b[q]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v = fmaxf(fabsf(p[0][2 * h]), fabsf(p[0][2 * h + 1]));
+#pragma unroll
+          for (int q = 1; q < kGroup; ++q)
+            v = fmaxf(v, fmaxf(fabsf(p[q][2 * h]), fabsf(p[q][2 * h + 1])));
+          tie |= v == m[r][h];
+          if (v > m[r][h]) {
+            m[r][h] = v;
+            jg[r][h] = j;
+#pragma unroll
+            for (int i = 0; i < kKept; ++i) kept[r][h][i] = p[i >> 1][2 * h + (i & 1)];
+          }
+        }
+      }
+    }
+    // A = max |p| of the row: the maximum over the quad
+#pragma unroll
+    for (int r = 0; r < kTiles; ++r) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m[r][h] = fmaxf(m[r][h], __shfl_xor_sync(0xffffffffu, m[r][h], 1));
+        m[r][h] = fmaxf(m[r][h], __shfl_xor_sync(0xffffffffu, m[r][h], 2));
+      }
+    }
+
+    // the lane's first indices with p == +A and with p == -A
+    unsigned pos[kTiles][2], neg[kTiles][2];
+    if (!__any_sync(0xffffffffu, tie)) {
+      // no lane saw a tie across groups: its first +A or -A is in group jg,
+      // whose products are kept in codeword order
+#pragma unroll
+      for (int r = 0; r < kTiles; ++r) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float am = m[r][h];
+          pos[r][h] = neg[r][h] = kNone;
+#pragma unroll
+          for (int i = kKept - 1; i >= 0; --i) {
+            const unsigned idx = 8u * (jg[r][h] + (i >> 1)) + 2u * t + (i & 1);
+            if (kept[r][h][i] == am) pos[r][h] = idx;
+            if (kept[r][h][i] == -am) neg[r][h] = idx;
+          }
+        }
+      }
+    } else {
+      // exact scan: the same mma again (the same bits), one compare per
+      // product; a lane that matches +A or -A records the index
+      float cmp[kTiles][2];
+#pragma unroll
+      for (int r = 0; r < kTiles; ++r) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          cmp[r][h] = m[r][h];
+          pos[r][h] = neg[r][h] = kNone;
+        }
+      }
+      for (int j = 0; j < kt; ++j) {
+        uint2 b[F::kSteps];
+        b_fragments<DIM>(frag, j, lane, b);
+        float p[kTiles][4];
+        bool hit = false;
+#pragma unroll
+        for (int r = 0; r < kTiles; ++r) {
+          products<DIM, PASSES>(p[r], a[r], b);
+          hit |= (fabsf(p[r][0]) == cmp[r][0]) | (fabsf(p[r][1]) == cmp[r][0]) |
+                 (fabsf(p[r][2]) == cmp[r][1]) | (fabsf(p[r][3]) == cmp[r][1]);
+        }
+        if (hit) {
+          const unsigned idx = 8u * j + 2u * t;
+#pragma unroll
+          for (int r = 0; r < kTiles; ++r) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (cmp[r][h] == cmp[r][h]) {   // not NaN: +A not found yet
+                record(p[r][2 * h], m[r][h], idx, pos[r][h], neg[r][h], cmp[r][h]);
+                record(p[r][2 * h + 1], m[r][h], idx + 1, pos[r][h], neg[r][h], cmp[r][h]);
+              }
+            }
+          }
+        }
+      }
+    }
+
+    // u = +A if a codeword gives +A (max p >= -min p), else -A; the code is
+    // the first such index of the quad.  Lane t writes row tile t.
+#pragma unroll
+    for (int r = 0; r < kTiles; ++r) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned ip = pos[r][h], in = neg[r][h];
+        ip = min(ip, __shfl_xor_sync(0xffffffffu, ip, 1));
+        ip = min(ip, __shfl_xor_sync(0xffffffffu, ip, 2));
+        in = min(in, __shfl_xor_sync(0xffffffffu, in, 1));
+        in = min(in, __shfl_xor_sync(0xffffffffu, in, 2));
+        const int64_t row = r0 + 16 * r + 8 * h;
+        if ((r & 3) == t && row < rows) {
+          const bool take_pos = ip != kNone;
+          u_out[row] = take_pos ? m[r][h] : -m[r][h];
+          codes_out[row] = (TCode)(take_pos ? ip : (in != kNone ? in : 0u));
+        }
+      }
+    }
   }
 }
 
 template <int DIM, int PASSES, typename TIn, typename TCode>
-int launch(const void* x, const float* codebook, int k, int64_t rows, float* u,
-           void* codes, cudaStream_t stream) {
-  auto kernel = hsq_encode_kernel<DIM, PASSES, TIn, TCode>;
-  const size_t smem = (size_t)k * DIM * sizeof(float);
+int launch(const void* x, const float* codebook, int k, int64_t rows, float* u, void* codes,
+           cudaStream_t stream) {
+  auto kernel = hsq_encode_tc_kernel<DIM, PASSES, TIn, TCode>;
+  const size_t smem = (size_t)(k + 8 * kGroup - 1) / (8 * kGroup) * kGroup * Frag<DIM>::kSteps * 32 *
+                      sizeof(uint2);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  int device = 0, sms = 0;
+  int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int threads = 256;
-  int64_t blocks = (rows + threads - 1) / threads;
-  const int64_t cap = (int64_t)sms * 8;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarps * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t tasks = (rows + kRowsPerWarp - 1) / kRowsPerWarp;
+  int64_t blocks = (tasks + kWarps - 1) / kWarps;
+  const int64_t cap = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
-      static_cast<const TIn*>(x), codebook, k, rows, u,
-      static_cast<TCode*>(codes));
+  kernel<<<(unsigned)blocks, kWarps * 32, smem, stream>>>(
+      static_cast<const TIn*>(x), codebook, k, rows, u, static_cast<TCode*>(codes));
   return (int)cudaGetLastError();
 }
 
 template <int DIM>
-int dispatch(const void* x, int x_bf16, const float* codebook, int k,
-             int64_t rows, int passes, float* u, void* codes,
-             int codes_u8, cudaStream_t s) {
+int dispatch(const void* x, int x_bf16, const float* codebook, int k, int64_t rows, int passes,
+             float* u, void* codes, int codes_u8, cudaStream_t s) {
 #define GQX_ENC(P, TI, TC) return launch<DIM, P, TI, TC>(x, codebook, k, rows, u, codes, s)
+  // a bf16 input has no low part: passes=2 contracts it as passes=1 does
+  if (x_bf16) {
+    if (codes_u8) GQX_ENC(1, __nv_bfloat16, uint8_t);
+    GQX_ENC(1, __nv_bfloat16, int32_t);
+  }
   if (passes == 1) {
-    if (x_bf16) { if (codes_u8) GQX_ENC(1, __nv_bfloat16, uint8_t); GQX_ENC(1, __nv_bfloat16, int32_t); }
     if (codes_u8) GQX_ENC(1, float, uint8_t);
     GQX_ENC(1, float, int32_t);
   }
-  if (x_bf16) { if (codes_u8) GQX_ENC(2, __nv_bfloat16, uint8_t); GQX_ENC(2, __nv_bfloat16, int32_t); }
   if (codes_u8) GQX_ENC(2, float, uint8_t);
   GQX_ENC(2, float, int32_t);
 #undef GQX_ENC
@@ -145,14 +455,24 @@ int dispatch(const void* x, int x_bf16, const float* codebook, int k,
 
 extern "C" {
 
-// x: (users, m * dim) contiguous, float32 or bf16 (x_bf16); codebook:
-// (k, dim) float32, bf16-exact; u: (users, m) float32; codes: (users, m)
-// uint8 (codes_u8) or int32.  Returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue for an unsupported dim/passes.
-int gqx_hsq_encode(const void* x, int x_bf16, const float* codebook, int k,
-                   int dim, int64_t users, int64_t m, int passes, float* u,
-                   void* codes, int codes_u8, void* stream) {
+// x: (users, m * dim) contiguous, float32 or bf16 (x_bf16), aligned to one
+// load (a lane's dim/4 values, in pieces of at most 4 bytes of bf16 or 16
+// of float32); codebook: (k, dim)
+// float32, bf16-exact; u: (users, m) float32; codes: (users, m) uint8
+// (codes_u8) or int32.  Returns cudaGetLastError() after the launch,
+// cudaErrorInvalidValue for an unsupported dim/passes or a codebook larger
+// than shared memory, cudaErrorMisalignedAddress for a misaligned x.
+int gqx_hsq_encode(const void* x, int x_bf16, const float* codebook, int k, int dim,
+                   int64_t users, int64_t m, int passes, float* u, void* codes, int codes_u8,
+                   void* stream) {
   if (passes != 1 && passes != 2) return (int)cudaErrorInvalidValue;
+  if (dim != 4 && dim != 8 && dim != 16 && dim != 32) return (int)cudaErrorInvalidValue;
+  if (k < 1 || (size_t)(k + 8 * kGroup - 1) / (8 * kGroup) * kGroup * (dim > 16 ? 2 : 1) * 32 *
+                       sizeof(uint2) > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const int64_t bytes = dim / 4 * (x_bf16 ? 2 : 4), piece = x_bf16 ? 4 : 16;
+  const int64_t align = bytes < piece ? bytes : piece;   // RowLoad::kPiece
+  if ((uintptr_t)x % (uintptr_t)align) return (int)cudaErrorMisalignedAddress;
   const int64_t rows = users * m;
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -160,8 +480,7 @@ int gqx_hsq_encode(const void* x, int x_bf16, const float* codebook, int k,
     case 4: return dispatch<4>(x, x_bf16, codebook, k, rows, passes, u, codes, codes_u8, s);
     case 8: return dispatch<8>(x, x_bf16, codebook, k, rows, passes, u, codes, codes_u8, s);
     case 16: return dispatch<16>(x, x_bf16, codebook, k, rows, passes, u, codes, codes_u8, s);
-    case 32: return dispatch<32>(x, x_bf16, codebook, k, rows, passes, u, codes, codes_u8, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return dispatch<32>(x, x_bf16, codebook, k, rows, passes, u, codes, codes_u8, s);
   }
 }
 

@@ -32,7 +32,9 @@ MAX_SMEM = 227 * 1024          # dynamic shared memory one block may use
 _CHUNK = 1 << 16               # rows per block of the plain versions
 
 
-def _check_codebook(codebook, dim, device):
+def _check_codebook(codebook, dim, device, smem=None):
+    """``smem``: the bytes of shared memory the kernel stages the codebook
+    in (default: the float32 codebook itself)."""
     if codebook.dtype != torch.float32 or codebook.dim() != 2 or codebook.shape[1] != dim:
         raise ValueError(f"codebook must be (K, {dim}) float32, got "
                          f"{tuple(codebook.shape)} {codebook.dtype}")
@@ -40,9 +42,24 @@ def _check_codebook(codebook, dim, device):
         raise ValueError("codebook must be contiguous on the input's device")
     if dim not in KERNEL_DIMS:
         raise NotImplementedError(f"no CUDA kernel for dim {dim} (has {KERNEL_DIMS})")
-    if codebook.numel() * 4 > MAX_SMEM:
-        raise NotImplementedError(
-            f"codebook of {codebook.numel() * 4} bytes exceeds shared memory")
+    smem = codebook.numel() * 4 if smem is None else smem
+    if smem > MAX_SMEM:
+        raise NotImplementedError(f"codebook of {smem} bytes exceeds shared memory")
+
+
+def encode_smem_bytes(k: int, dim: int) -> int:
+    """Shared memory of the encode kernel's codebook: per 8 codewords (K
+    padded to a multiple of 16) and k-step of 16 dims (two at dim 32), 32
+    lanes x 8 bytes of bf16 B fragments."""
+    return (k + 15) // 16 * 2 * (2 if dim > 16 else 1) * 32 * 8
+
+
+def encode_alignment(dim: int, dtype) -> int:
+    """The bytes of one load of the encode kernel (a lane's dim/4 values of
+    a row, in pieces of at most 4 bytes of bf16 or 16 of float32): its input
+    must start on a multiple of it."""
+    bf16 = dtype == torch.bfloat16
+    return min(4 if bf16 else 16, dim // 4 * (2 if bf16 else 4))
 
 
 def check_signature(what: str, codes, u, codebook, dim):
@@ -103,7 +120,10 @@ def _encode_kernel(flat, codebook, dim, passes, code_dtype):
     k = codebook.shape[0]
     if code_dtype == torch.uint8 and k > 256:
         raise ValueError(f"hsq_encode: {k} codewords do not fit uint8 codes")
-    _check_codebook(codebook, dim, flat.device)
+    _check_codebook(codebook, dim, flat.device, encode_smem_bytes(k, dim))
+    if flat.data_ptr() % encode_alignment(dim, flat.dtype):
+        raise ValueError(f"hsq_encode: input must start on a multiple of "
+                         f"{encode_alignment(dim, flat.dtype)} bytes")
     batched = flat.dim() == 2
     x = flat if batched else flat[None]
     users, size = x.shape

@@ -48,23 +48,56 @@ def _encode_inputs(seed, cb, users, m):
     return x.reshape(users, m * dim)
 
 
+def _encode_near_ties_only(x, cb, passes, c_kernel, c_plain):
+    """Codes may differ only where the top two |p| of the row, as the plain
+    version forms it (bf16 hi, plus the bf16 lo at passes=2), are within
+    1e-5 relative; returns the rows where they agree."""
+    differ = (c_kernel != c_plain).reshape(-1)
+    if bool(differ.any()):
+        rows = x.reshape(-1, cb.shape[1])[differ].float()
+        hi = rows.bfloat16().float()
+        p = hi.double() @ cb.double().t()
+        if passes == 2:
+            p = p + (rows - hi).bfloat16().double() @ cb.double().t()
+        top = p.abs().topk(2, dim=1).values
+        assert float(((top[:, 0] - top[:, 1]) / top[:, 0].clamp_min(1e-30)).max()) <= 1e-5
+    return ~differ
+
+
+# (dim, K, codes): every dim of the kernel at 64 and 256 codewords with uint8
+# codes, and gqx's flat limit at dim 16 (K = 1024) with int32 codes
+ENCODE_SHAPES = [(4, 64, torch.uint8), (8, 64, torch.uint8), (16, 64, torch.uint8),
+                 (32, 64, torch.uint8), (4, 256, torch.uint8), (8, 256, torch.uint8),
+                 (16, 256, torch.uint8), (32, 256, torch.uint8), (16, 1024, torch.int32)]
+
+
+@pytest.mark.parametrize("users", [1, 3])
 @pytest.mark.parametrize("passes", [1, 2])
-def test_cuda_kernels_match_plain(cuda_device, passes):
-    cb_np = _codebook(0, 256, 16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim,k,code_dtype", ENCODE_SHAPES)
+def test_cuda_kernels_match_plain(cuda_device, dim, k, code_dtype, dtype, passes, users):
+    """The encode against its plain version (then the decode-mean and the
+    uniforms on its output).  4,099 rows per user: not a multiple of the
+    kernel's 64-row warp tile.  One user goes in as a 1-D vector."""
+    m = 4099
+    cb_np = _codebook(dim * k, k, dim)
     cb = torch.from_numpy(cb_np).to(cuda_device)
-    x = torch.from_numpy(_encode_inputs(0, cb_np, 4, 4096)).to(cuda_device)
+    x = torch.from_numpy(_encode_inputs(dim, cb_np, users, m)).to(cuda_device, dtype)
+    x_in = x[0] if users == 1 else x
     before = dict(hsq_ops.launches), rand_ops.launches
-    u, c = hsq_ops.hsq_encode_flat(x, cb, 16, passes)
-    up, cp = hsq_ops.hsq_encode_flat_plain(x, cb, 16, passes)
-    assert torch.equal(c[:, :8].cpu(), torch.tensor([[0, 0, 0, 0, 1, 0, 2, 2]] * 4,
-                                                    dtype=torch.uint8))
+    u, c = hsq_ops.hsq_encode_flat(x_in, cb, dim, passes, code_dtype)
+    up, cp = hsq_ops.hsq_encode_flat_plain(x_in, cb, dim, passes, code_dtype)
+    assert u.shape == c.shape == x_in.shape[:-1] + (m,) and c.dtype == code_dtype
+    u, c, up, cp = (t.reshape(users, m) for t in (u, c, up, cp))
+    assert torch.equal(c[:, :8].cpu(), torch.tensor([[0, 0, 0, 0, 1, 0, 2, 2]] * users,
+                                                    dtype=code_dtype))
     assert bool((u[:, :4] == 0).all())
     assert int((c != cp).sum()) <= 2
-    same = c == cp
+    same = _encode_near_ties_only(x, cb, passes, c, cp).reshape(users, m)
     torch.testing.assert_close(u[same], up[same], rtol=1e-6, atol=0)
-    d = hsq_ops.hsq_decode_mean(c, u, cb, 16, passes)
-    dp = hsq_ops.hsq_decode_mean_plain(c, u, cb, 16, passes)
-    tol = 1e-6 * hsq_ops.hsq_decode_mean_plain(c, u.abs(), cb.abs(), 16, 2)
+    d = hsq_ops.hsq_decode_mean(c, u, cb, dim, passes)
+    dp = hsq_ops.hsq_decode_mean_plain(c, u, cb, dim, passes)
+    tol = 1e-6 * hsq_ops.hsq_decode_mean_plain(c, u.abs(), cb.abs(), dim, 2)
     assert bool(((d - dp).abs() <= tol).all())
     r = rand_ops.uniform(99, 5, (3, 70001), cuda_device)
     assert torch.equal(r, rand_ops.uniform_plain(99, 5, (3, 70001), cuda_device))
@@ -73,6 +106,19 @@ def test_cuda_kernels_match_plain(cuda_device, passes):
     assert hsq_ops.launches["hsq_encode"] == before[0]["hsq_encode"] + 1
     assert hsq_ops.launches["hsq_decode_mean"] == before[0]["hsq_decode_mean"] + 1
     assert rand_ops.launches == before[1] + 1
+
+
+@pytest.mark.parametrize("dim,k,code_dtype,dtype,passes", [
+    (16, 256, torch.uint8, torch.bfloat16, 1), (16, 256, torch.uint8, torch.float32, 2),
+    (32, 1024, torch.int32, torch.float32, 1), (4, 64, torch.uint8, torch.bfloat16, 1)])
+def test_cuda_encode_repeats_bits(cuda_device, dim, k, code_dtype, dtype, passes):
+    """Two runs of the encode on the same input give the same bits."""
+    cb = torch.from_numpy(_codebook(7, k, dim)).to(cuda_device)
+    x = torch.from_numpy(_encode_inputs(8, cb.cpu().numpy(), 2, 30001)).to(cuda_device, dtype)
+    u1, c1 = hsq_ops.hsq_encode_flat(x, cb, dim, passes, code_dtype)
+    u2, c2 = hsq_ops.hsq_encode_flat(x, cb, dim, passes, code_dtype)
+    assert torch.equal(c1, c2)
+    assert torch.equal(u1.view(torch.int32), u2.view(torch.int32))
 
 
 def test_cuda_wrappers_refuse_bad_input(cuda_device):
@@ -84,6 +130,10 @@ def test_cuda_wrappers_refuse_bad_input(cuda_device):
         hsq_ops.hsq_encode_flat(x.double(), cb, 16, 1)
     with pytest.raises(ValueError):
         hsq_ops.hsq_encode_flat(x, cb.cpu(), 16, 1)                      # codebook elsewhere
+    with pytest.raises(ValueError):
+        hsq_ops.hsq_encode_flat(x.bfloat16().reshape(-1)[1:-15], cb, 16, 1)   # 4-byte loads, 2 B off
+    with pytest.raises(ValueError):
+        hsq_ops.hsq_encode_flat(x, torch.cat([cb] * 2), 16, 1)           # 512 codewords, uint8 codes
     u, c = hsq_ops.hsq_encode_flat(x, cb, 16, 1)
     with pytest.raises(ValueError):
         hsq_ops.hsq_decode_mean(c, u.double(), cb, 16, 1)

@@ -275,3 +275,25 @@ def test_cpu_wrappers_take_plain_versions(rng):
     hsq_ops.hsq_decode_flat(c, u, cb, 16, 1)
     rand_ops.uniform(1, 0, (3,), "cpu")
     assert (dict(hsq_ops.launches), rand_ops.launches) == before
+
+
+def test_encode_kernel_covers_the_flat_envelope():
+    """Every (dim, K) of gqx's flat layout that the kernel's dims take, K a
+    power of two, fits the encode kernel's shared memory; and a user's row
+    of a (U, M*dim) unit starts on the kernel's load alignment whenever the
+    unit does."""
+    from gqx_torch.ops.hsq_prep import supports_flat
+
+    for dim in hsq_ops.KERNEL_DIMS:
+        ks = [2 ** b for b in range(1, 14) if supports_flat(dim, 2 ** b)]
+        assert ks and max(ks) == 8192 // (128 // dim)
+        for k in ks:
+            assert hsq_ops.encode_smem_bytes(k, dim) <= hsq_ops.MAX_SMEM
+        for dtype, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+            align = hsq_ops.encode_alignment(dim, dtype)
+            assert align == min(4 if size == 2 else 16, dim // 4 * size)
+            assert (dim * size) % align == 0
+    # 8 bytes per 8 codewords, k-step and lane: dim 16, K 256 -> 8 KB; dim 32 two steps
+    assert hsq_ops.encode_smem_bytes(256, 16) == 8192
+    assert hsq_ops.encode_smem_bytes(2048, 32) == 131072
+    assert hsq_ops.encode_smem_bytes(13, 8) == 512
