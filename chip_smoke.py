@@ -15,10 +15,12 @@
    encode and decode at dim 8 / K 1024, plus a ragged dim and a codebook
    larger than shared memory; the per-user conv
    weight gradient at the five 3x3 geometries of ResNet-50 (8 users x 32,
-   bf16: the stem on the CUDA-core kernel, the four others on the
-   tensor-core kernel) and at odd ones on both; and times kernel, plain
-   version and, where one exists, the PyTorch call computing the same
-   function.
+   bf16: the stem on the narrow kernel, the four others on the
+   tensor-core kernel), at the five of ResNet-18 in float32 (the CUDA-core
+   kernel) and at odd ones on all three; and times kernel, plain version
+   and, where one exists, the PyTorch call computing the same function
+   (for the conv weight gradient, one grouped call for all users, with the
+   per-user calls beside it).
 4. Runs five training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute,
    hsq_passes=1, random weights and data from --seed), each for one
    warm-up step and --steps steps with the launch counters set to 0 just
@@ -30,12 +32,14 @@
      P4  HSQ c_dim 8 / k_bit 10 (the row-major kernels);
      P5  P1 with folded_users=False (the per-user loop), one step.
    The counters must equal what the code implies (the per-user conv weight
-   gradient: 13 tensor-core and 1 CUDA-core launch per folded step).  The aggregate of one
-   more step of each of P1-P4 (and P2's new error-feedback state) is
-   recomputed on the CPU through the plain versions from the same
-   gradients, state and seed, and compared.
+   gradient: 13 tensor-core, 1 narrow and 0 CUDA-core launches per folded
+   step).  The aggregate of one more step of each of P1-P4 (and P2's new
+   error-feedback state) is recomputed on the CPU through the plain
+   versions from the same gradients, state and seed, and compared.
 5. Compares folded and looped per-user gradients from the same weights and
-   batch on the card: ResNet-18 float32 and ResNet-50 bf16.
+   batch on the card: ResNet-18 float32 and ResNet-50 bf16, with the conv
+   weight gradient's launches of each folded run counted (the float32 run
+   is the path of the CUDA-core kernel: 14 launches).
 6. Steps the four other configurations of the canonical comparison (sgd,
    qsgd2bit, terngrad, sign), folded; the qsgd and sign aggregates are
    recomputed on the CPU like the others.  Takes one eval step.
@@ -97,15 +101,19 @@ def device_ms(fn, n: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
-    if total == 0.0:
-        raise AssertionError("the profiler saw no device time")
-    return total / 1e3 / n
+    # a profiled window now and then comes back without device events (seen
+    # once in a run of some sixty windows): such a window is profiled again,
+    # twice at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        if total > 0.0:
+            return total / 1e3 / n
+    raise AssertionError("the profiler saw no device time in three windows")
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float):
@@ -130,11 +138,16 @@ EF_EPOCH = 1.0   # the error-feedback scale is config.ef_scale(EF_EPOCH)
 
 # the stride-1 same-size 3x3 convs of CIFAR ResNet-50, whose per-user weight
 # gradient the folded step takes from the per_user_dw kernels:
-# (Ci, Co, H = W, convs of that geometry); the stem's 3 input channels take
-# the CUDA-core kernel, the others the tensor-core kernel
+# (Ci, Co, H = W, convs of that geometry); in bf16 the stem's 3 input
+# channels take the narrow kernel, the others the tensor-core kernel
 DW_GEOMETRIES = ((3, 64, 32, 1), (64, 64, 32, 3), (128, 128, 16, 3),
                  (256, 256, 8, 5), (512, 512, 4, 2))
-DW_PER_STEP = {"per_user_dw": 1, "per_user_dw_tc": sum(g[3] for g in DW_GEOMETRIES[1:])}
+DW_PER_STEP = {"per_user_dw_narrow": 1, "per_user_dw_tc": sum(g[3] for g in DW_GEOMETRIES[1:]),
+               "per_user_dw": 0}
+# the same convs of CIFAR ResNet-18, which the float32 folded gradients of
+# folded_vs_looped take from the CUDA-core kernel
+DW_GEOMETRIES_F32 = ((3, 64, 32, 1), (64, 64, 32, 4), (128, 128, 16, 3),
+                     (256, 256, 8, 3), (512, 512, 4, 3))
 
 # the other configurations of the canonical comparison
 COMPARISON = {
@@ -345,14 +358,21 @@ def kernel_phase(seed: int):
     codes_t = c_k.t().long().contiguous()
     w_t = (u_q.t() / users).contiguous()
     b, by = bound(users * m * 5 + m * dim * 4 + k * dim * 4, 2.0 * distinct * dim, FP32_FLOPS)
+    # device time (torch.profiler), CUDA events beside it
+    kernel = lambda: hsq_ops.hsq_decode_mean(c_k, u_q, cb, dim, 1)
+    library = lambda: F.embedding_bag(codes_t, cb, per_sample_weights=w_t, mode="sum")
     entries["hsq_decode_mean"] = dict(
         name="hsq_decode_mean", route="cuda", source="gqx_torch/csrc/hsq_decode_mean.cu",
         replaces="gqx/ops/pallas_hsq4.py:252", max_abs_err=float(err.max()),
-        ms=cuda_ms(lambda: hsq_ops.hsq_decode_mean(c_k, u_q, cb, dim, 1), 20),
-        plain_ms=cuda_ms(lambda: hsq_ops.hsq_decode_mean_plain(c_k, u_q, cb, dim, 1), 2),
-        bound_ms=b, bound_by=by,
-        library_ms=cuda_ms(lambda: F.embedding_bag(codes_t, cb, per_sample_weights=w_t,
-                                                    mode="sum"), 20))
+        ms=device_ms(kernel, 20), events_ms=cuda_ms(kernel, 20),
+        plain_ms=device_ms(lambda: hsq_ops.hsq_decode_mean_plain(c_k, u_q, cb, dim, 1), 2),
+        bound_ms=b, bound_by=by, library_ms=device_ms(library, 20),
+        library_events_ms=cuda_ms(library, 20))
+    e = entries["hsq_decode_mean"]
+    log(f"[hsq_decode_mean] {users} users x {m} subvectors of {dim}, passes=1: {e['ms']:.4f} ms "
+        f"device time (events {e['events_ms']:.4f} ms; bound {b:.4f} ms by {by}), plain "
+        f"{e['plain_ms']:.3f} ms, library (embedding_bag) {e['library_ms']:.4f} ms "
+        f"(events {e['library_events_ms']:.4f} ms)")
     # K4 on the same signature: all users at once (the users' round trip with
     # error feedback) and one user (the server's recompression, a ring hop)
     err4 = 0.0
@@ -497,21 +517,28 @@ def rows_kernel_phase(seed: int):
 def dw_kernel_phase(seed: int):
     """The per-user conv weight gradient against its plain version: the five
     3x3 geometries of ResNet-50 at 8 users x 32 images in bf16 (the stem's 3
-    input channels take the CUDA-core kernel, the others the tensor-core
-    kernel, as the per-route counters must show), then odd ones: float32
-    inputs and the stem's 3 channels in float32 with an even window and
-    uneven pads (CUDA cores); a 5x5 window with uneven pads on a 7x9 plane
-    with ragged channel tiles (tensor cores).
+    input channels take the narrow kernel, the others the tensor-core
+    kernel, as the per-route counters must show), the five of ResNet-18 in
+    float32 (the CUDA-core kernel, which the float32 folded step of
+    ``folded_vs_looped`` runs), then odd ones: the stem's 3 channels in
+    float32 with an even window and uneven pads (CUDA cores); a 5x5 window
+    with uneven pads on a 7x9 plane with ragged channel tiles (tensor
+    cores); 15 channels under a 7x7 window on rows of 70 (735 columns, 23
+    column tiles) and one channel under a 3x7 window with pads (2, 5) on a
+    9x7 plane (narrow).
 
     Tolerance: kernel and plain version add the same float32 products (exact
     for bf16 operands) in different orders, so they may differ by
     sqrt(n) * 2^-23 of the summed magnitudes, n = B*H*W terms per sum.
 
     Returns one entry per route; its times are per training step: each
-    geometry's time weighted by how many convs of the step have it.  They are
-    device times from torch.profiler: the library's per-user calls keep the
-    card waiting on the host, so CUDA events around them measure the host
-    (both are printed)."""
+    geometry's time weighted by how many convs of the step have it (a
+    ResNet-50 bf16 step for the tensor-core and narrow routes, a ResNet-18
+    float32 step for the CUDA-core route).  They are device times from
+    torch.profiler, CUDA events beside them.  ``library_ms`` is the one
+    PyTorch call that computes every user's gradient (``conv2d_weight`` with
+    groups = U on the users folded into the channels, float32 without TF32
+    for float32 inputs); the U per-user calls are timed beside it."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -552,62 +579,94 @@ def dw_kernel_phase(seed: int):
             "two runs bit-equal")
         return want_route, float(err.max())
 
-    def library(x, dy, u, kh, kw, ph, pw):
+    def per_user_library(x, dy, u, kh, kw, ph, pw):
         xp = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph))
         b = x.shape[0] // u
         shape = (dy.shape[1], x.shape[1], kh, kw)
         return torch.stack([torch.nn.grad.conv2d_weight(xp[i * b:(i + 1) * b], shape,
                                                         dy[i * b:(i + 1) * b]) for i in range(u)])
 
-    routes = {r: dict(tot=dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, events_ms=0.0,
-                               library_events_ms=0.0), worst=0.0,
+    def grouped_operands(x, dy, u, kh, kw, ph, pw):
+        """x as (B, U*Ci, H + kh - 1, W + kw - 1), padded, and dy as
+        (B, U*Co, H, W): the users folded into the channels, for one call
+        with groups = U."""
+        xp = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph))
+        fold = lambda t: t.reshape((u, -1) + t.shape[1:]).transpose(0, 1).reshape(
+            (t.shape[0] // u, -1) + t.shape[2:]).contiguous()
+        return fold(xp), fold(dy)
+
+    def grouped_library(xg, dg, u, co, ci, kh, kw):
+        return torch.nn.grad.conv2d_weight(xg, (u * co, ci, kh, kw), dg, groups=u).reshape(
+            u, co, ci, kh, kw)
+
+    keys = ("ms", "plain_ms", "library_ms", "per_user_library_ms", "bound_ms", "events_ms",
+            "library_events_ms")
+    routes = {r: dict(tot=dict.fromkeys(keys, 0.0), worst=0.0,
                       by={"bytes": 0.0, "operations": 0.0}, geometries=[])
-              for r in (dw_ops.CUDA_CORE, dw_ops.TENSOR_CORE)}
-    for ci, co, hw, count in DW_GEOMETRIES:
-        x, dy = make(ci, co, hw, hw, torch.bfloat16)
-        name = f"{ci}->{co} @{hw}x{hw} bf16"
-        which, err = check(x, dy, users, 3, 3, 1, 1, name)
-        r = routes[which]
-        r["worst"] = max(r["worst"], err)
-        lib = library(x, dy, users, 3, 3, 1, 1).float()
-        ref = dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1)
-        if not bool(((lib - ref).abs() <= 2.0 ** -7 * ref.abs().max()).all()):
-            raise AssertionError(f"per_user_dw {name}: the library call computes something else")
-        flop = 2.0 * 9 * users * batch * hw * hw * ci * co
-        b_ms, b_by = bound((x.numel() + dy.numel()) * 2 + users * co * ci * 9 * 4, flop, BF16_FLOPS)
-        kernel = lambda: dw_ops.per_user_dw(x, dy, users, 3, 3, 1, 1)
-        plain = lambda: dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1)
-        call = lambda: library(x, dy, users, 3, 3, 1, 1)
-        # device time (torch.profiler); the events' time per call beside it
-        g = dict(shape=name, route=which, per_step=count, bound_ms=b_ms, bound_by=b_by,
-                 ms=device_ms(kernel, 20), plain_ms=device_ms(plain, 3),
-                 library_ms=device_ms(call, 5), events_ms=cuda_ms(kernel, 20),
-                 library_events_ms=cuda_ms(call, 5))
-        g["tflops"] = flop / g["ms"] * 1e-9
-        log(f"[per_user_dw {name}] route {which}: {g['ms']:.4f} ms = {g['tflops']:.1f} TFLOP/s "
-            f"(bound {b_ms:.4f} ms by {b_by}), plain {g['plain_ms']:.3f} ms, library "
-            f"(conv2d_weight per user) {g['library_ms']:.4f} ms; by events: kernel "
-            f"{g['events_ms']:.4f}, library {g['library_events_ms']:.4f} ms; x{count} per step")
-        r["geometries"].append(g)
-        r["by"][b_by] += count * b_ms
-        for key in r["tot"]:
-            r["tot"][key] += count * g[key]
-        del x, dy, lib, ref
-    step = {key: sum(r["tot"][key] for r in routes.values())
-            for key in ("ms", "library_ms", "events_ms", "library_events_ms", "bound_ms")}
-    log(f"[per_user_dw per step] both routes, 14 convs, device time: {step['ms']:.4f} ms "
-        f"(bound {step['bound_ms']:.4f} ms), library {step['library_ms']:.4f} ms; by events: "
-        f"{step['events_ms']:.4f} ms, library {step['library_events_ms']:.4f} ms")
-    x, dy = make(64, 64, 32, 32, torch.float32)
-    check(x, dy, users, 3, 3, 1, 1, "64->64 @32x32 float32")
-    log(f"[per_user_dw 64->64 @32x32 float32] "
-        f"{cuda_ms(lambda: dw_ops.per_user_dw(x, dy, users, 3, 3, 1, 1), 10):.4f} ms")
+              for r in (dw_ops.CUDA_CORE, dw_ops.TENSOR_CORE, dw_ops.NARROW)}
+    tf32 = torch.backends.cudnn.allow_tf32
+    for dtype, geometries in ((torch.bfloat16, DW_GEOMETRIES), (torch.float32, DW_GEOMETRIES_F32)):
+        size = 2 if dtype == torch.bfloat16 else 4
+        # the library in float32 computes the same float32 products only without TF32
+        torch.backends.cudnn.allow_tf32 = dtype != torch.float32
+        try:
+            for ci, co, hw, count in geometries:
+                x, dy = make(ci, co, hw, hw, dtype)
+                name = f"{ci}->{co} @{hw}x{hw} {str(dtype)[6:]}"
+                which, err = check(x, dy, users, 3, 3, 1, 1, name)
+                r = routes[which]
+                r["worst"] = max(r["worst"], err)
+                ref = dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1)
+                xg, dg = grouped_operands(x, dy, users, 3, 3, 1, 1)
+                for label, lib in (("per user", per_user_library(x, dy, users, 3, 3, 1, 1)),
+                                   ("grouped", grouped_library(xg, dg, users, co, ci, 3, 3))):
+                    if not bool(((lib.float() - ref).abs() <= 2.0 ** -7 * ref.abs().max()).all()):
+                        raise AssertionError(f"per_user_dw {name}: the library call ({label}) "
+                                             "computes something else")
+                del lib, ref
+                flop = 2.0 * 9 * users * batch * hw * hw * ci * co
+                b_ms, b_by = bound((x.numel() + dy.numel()) * size + users * co * ci * 9 * 4, flop,
+                                   BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+                kernel = lambda: dw_ops.per_user_dw(x, dy, users, 3, 3, 1, 1)
+                plain = lambda: dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1)
+                per_user = lambda: per_user_library(x, dy, users, 3, 3, 1, 1)
+                grouped = lambda: grouped_library(xg, dg, users, co, ci, 3, 3)
+                # device time (torch.profiler); the events' time per call beside it
+                g = dict(shape=name, route=which, per_step=count, bound_ms=b_ms, bound_by=b_by,
+                         ms=device_ms(kernel, 20), plain_ms=device_ms(plain, 3),
+                         library_ms=device_ms(grouped, 5), per_user_library_ms=device_ms(per_user, 5),
+                         events_ms=cuda_ms(kernel, 20), library_events_ms=cuda_ms(grouped, 5))
+                g["tflops"] = flop / g["ms"] * 1e-9
+                log(f"[per_user_dw {name}] route {which}: {g['ms']:.4f} ms = {g['tflops']:.1f} "
+                    f"TFLOP/s (bound {b_ms:.4f} ms by {b_by}), plain {g['plain_ms']:.3f} ms, library "
+                    f"(one conv2d_weight, groups={users}) {g['library_ms']:.4f} ms, (conv2d_weight "
+                    f"per user) {g['per_user_library_ms']:.4f} ms; by events: kernel "
+                    f"{g['events_ms']:.4f}, library {g['library_events_ms']:.4f} ms; x{count} per step")
+                r["geometries"].append(g)
+                r["by"][b_by] += count * b_ms
+                for key in r["tot"]:
+                    r["tot"][key] += count * g[key]
+                del x, dy, xg, dg
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    step = {key: sum(routes[r]["tot"][key] for r in (dw_ops.TENSOR_CORE, dw_ops.NARROW))
+            for key in ("ms", "library_ms", "per_user_library_ms", "events_ms", "library_events_ms",
+                        "bound_ms")}
+    log(f"[per_user_dw per step] ResNet-50 bf16, 14 convs, device time: {step['ms']:.4f} ms "
+        f"(bound {step['bound_ms']:.4f} ms), library {step['library_ms']:.4f} ms (per user "
+        f"{step['per_user_library_ms']:.4f} ms); by events: {step['events_ms']:.4f} ms, library "
+        f"{step['library_events_ms']:.4f} ms")
     x, dy = make(3, 20, 32, 32, torch.float32, n=3 * 5)
     check(x, dy, 3, 2, 2, 0, 1, "3->20 @32x32 float32 2x2 pads (0,1)")
     x, dy = make(24, 70, 7, 9, torch.bfloat16, n=2 * 7)
     check(x, dy, 2, 5, 5, 3, 1, "24->70 @7x9 bf16 5x5 pads (3,1)")
+    x, dy = make(15, 70, 7, 70, torch.bfloat16, n=2 * 3)
+    check(x, dy, 2, 7, 7, 3, 2, "15->70 @7x70 bf16 7x7 pads (3,2)")
+    x, dy = make(1, 8, 9, 7, torch.bfloat16, n=4)
+    check(x, dy, 1, 3, 7, 2, 5, "1->8 @9x7 bf16 3x7 pads (2,5)")
     sources = {dw_ops.CUDA_CORE: ("per_user_dw", "gqx_torch/csrc/per_user_dw.cu"),
-               dw_ops.TENSOR_CORE: ("per_user_dw_tc", "gqx_torch/csrc/per_user_dw_tc.cu")}
+               dw_ops.TENSOR_CORE: ("per_user_dw_tc", "gqx_torch/csrc/per_user_dw_tc.cu"),
+               dw_ops.NARROW: ("per_user_dw_narrow", "gqx_torch/csrc/per_user_dw_narrow.cu")}
     entries = {}
     for which, (name, source) in sources.items():
         r = routes[which]
@@ -693,7 +752,8 @@ def counters(reset=False):
     if dw_ops.launches != sum(by_route.values()):
         raise AssertionError(f"per_user_dw: {dw_ops.launches} launches, by route {by_route}")
     return {**hsq_ops.launches, **hsq_rows.launches, "philox_uniform": rand_ops.launches,
-            "per_user_dw": by_route[dw_ops.CUDA_CORE], "per_user_dw_tc": by_route[dw_ops.TENSOR_CORE]}
+            "per_user_dw": by_route[dw_ops.CUDA_CORE], "per_user_dw_tc": by_route[dw_ops.TENSOR_CORE],
+            "per_user_dw_narrow": by_route[dw_ops.NARROW]}
 
 
 def per_user_grads(cfg, state, plan, x, y):
@@ -924,6 +984,9 @@ def folded_vs_looped(seed: int):
     """From the same weights and batch on the card, the folded step's
     per-user gradients against the per-user loop's, at 8 users x 32.  BN
     biases are drawn from [1, 2], which keeps most ReLU inputs away from 0.
+    Returns the per_user_dw launches of each folded run, counted from 0 just
+    before it: ResNet-18 float32 takes the CUDA-core kernel for its 14
+    stride-1 3x3 convs, ResNet-50 bf16 the 13 + 1 of a folded step.
 
     ResNet-18 in float32 (no TF32): the two routes differ by the summation
     order of cuDNN's algorithms for batch 256 and batch 32, about 1e-6, but
@@ -950,6 +1013,7 @@ def folded_vs_looped(seed: int):
     from gqx_torch.train import create_train_state, folded_user_grads, user_grads
 
     dev = torch.device("cuda")
+    launches = {}
 
     def build(network, dtype):
         cfg = canonical_config(network=network, compute_dtype=dtype)
@@ -968,7 +1032,15 @@ def folded_vs_looped(seed: int):
         x = torch.from_numpy(rng.standard_normal(
             (cfg.num_users, cfg.batch_size, 3, 32, 32), dtype=np.float32)).to(dev)
         y = torch.from_numpy(rng.integers(0, 10, (cfg.num_users, cfg.batch_size))).to(dev)
+        counters(reset=True)
         loss_f, grads_f = folded_user_grads(model, plan, plan.names, x, y)
+        got = {k: v for k, v in counters().items() if k.startswith("per_user_dw")}
+        want = ({"per_user_dw": sum(g[3] for g in DW_GEOMETRIES_F32), "per_user_dw_tc": 0,
+                 "per_user_dw_narrow": 0} if dtype == "float32" else DW_PER_STEP)
+        if got != want:
+            raise AssertionError(f"folded {network} {dtype}: per_user_dw launches {got}, "
+                                 f"expected {want}")
+        launches[f"{network} {dtype} folded"] = got
         clear_batch_stats(model)
         loss_l, grads_l = user_grads(model, plan.names, x, y)
         clear_batch_stats(model)
@@ -1007,6 +1079,7 @@ def folded_vs_looped(seed: int):
                                  f"beyond {tol}")
         del grads_f, grads_l, model
         torch.cuda.empty_cache()
+    return launches
 
 
 def comparison_phase(seed: int, steps: int):
@@ -1085,17 +1158,22 @@ def main():
             device_profile(state, step, batch, ms)
         del state, step, batch
         torch.cuda.empty_cache()
+    # the float32 route of K7 is on no bf16 path: its path is the float32
+    # folded gradients of the comparison with the loop
+    for label, got in folded_vs_looped(args.seed).items():
+        if "float32" in label:
+            entries["per_user_dw"]["launches"] += got["per_user_dw"]
+            entries["per_user_dw"]["launches_by_path"][label] = got["per_user_dw"]
+    torch.cuda.empty_cache()
     for e in entries.values():
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']} was launched on no path")
 
-    folded_vs_looped(args.seed)
-    torch.cuda.empty_cache()
-
     comparison_phase(args.seed, args.steps)
 
     order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
-             "hsq_rows_encode", "hsq_rows_decode", "per_user_dw", "per_user_dw_tc")
+             "hsq_rows_encode", "hsq_rows_decode", "per_user_dw", "per_user_dw_tc",
+             "per_user_dw_narrow")
     print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,17 +4,18 @@
 //   dW[u, co, ci, i, j] = sum over the images b of user u and over (h, w) of
 //       xpad[b, ci, h + i - ph, w + j - pw] * dy[b, co, h, w]
 //
-// with x (U*B, Ci, H, W) and dy (U*B, Co, H, W) in NCHW, float32 or bf16,
-// xpad the input with a zero border (ph, pw the low pads), and dW
-// (U, Co, Ci, kh, kw) float32 in the weight's OIHW layout.  Operands are
-// converted to float32 and accumulated with float32 FMAs, so with bf16
-// operands every product is exact and only the order of the sum differs
-// from any other float32 evaluation.
+// with x (U*B, Ci, H, W) and dy (U*B, Co, H, W) float32 in NCHW, xpad the
+// input with a zero border (ph, pw the low pads), and dW (U, Co, Ci, kh, kw)
+// float32 in the weight's OIHW layout, accumulated with float32 FMAs.  This
+// is the route of float32 inputs (ops/dw.py::route), whose products the
+// tensor cores would round; bf16 inputs take per_user_dw_tc.cu (16 input
+// channels or more) or per_user_dw_narrow.cu (fewer).
 //
-// Replaces: gqx/ops/pallas_dw.py::per_user_dw (_dw_kernel), which views both
-// operands as (B*H*W, C) in NHWC, rolls x by the tap's offset, masks the rows
-// of dy that wrapped, and contracts on the TPU's matrix unit, carrying the
-// sum over batch chunks in the output block.  None of that carries over: a
+// Replaces: gqx/ops/pallas_dw.py::per_user_dw (_dw_kernel) for float32
+// inputs.  The TPU kernel views both operands as (B*H*W, C) in NHWC, rolls
+// x by the tap's offset, masks the rows of dy that wrapped, and contracts on
+// the TPU's matrix unit, carrying the sum over batch chunks in the output
+// block.  None of that carries over: a
 // shifted tap here is an index into a staged tile with a zero halo, the
 // layout is NCHW so that loads along w coalesce, and the reduction over a
 // user's images, where it is split, is split across blocks and combined by
@@ -24,7 +25,7 @@
 // (19.3 GFLOP for a 3x3 conv of ResNet-50's 64-, 128-, 256- or 512-channel
 // stage at 8 users x 32 images) against at most 67 MB read and 75 MB
 // written.  This kernel works on the CUDA cores (67 TFLOP/s float32), so it
-// is far from the bf16 tensor-core bound; it is also short of the CUDA
+// is far from the tensor cores' bound; it is also short of the CUDA
 // cores' peak by its staging through shared memory without overlap, one
 // shared load per 6 FMAs (2.4 with few input channels), and the partial
 // tiles of narrow layers.
@@ -35,9 +36,8 @@
 // stem) and all kw taps of that row.  A thread keeps 4 x CIT x kw sums in
 // registers (CIT = TCI / 16).  The block walks over the (image, row) pairs
 // of its range in chunks that fit 96 KB of shared memory (two blocks per
-// multiprocessor): it stages, as
-// float32, the dy rows (64 x rows x wc) and the x rows shifted by i - ph
-// with kw - 1 halo columns (TCI x rows x (wc + kw - 1)), zero outside the
+// multiprocessor): it stages the dy rows (64 x rows x wc) and the x rows
+// shifted by i - ph with kw - 1 halo columns (TCI x rows x (wc + kw - 1)), zero outside the
 // image, then every thread slides a kw-wide window along each row: one new
 // x value per input channel and one dy value per output channel feed
 // 4 * CIT * kw FMAs.  Channel planes in shared memory have an odd stride,
@@ -50,7 +50,6 @@
 // A tap row per block triples (for 3x3) the reads from L2 and in exchange
 // keeps the register tile small and gives narrow layers enough blocks.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,9 +66,6 @@ constexpr int kMaxCols = 64;     // columns of a row staged at once
 constexpr int kSmemFloats = 96 * 1024 / 4;  // below 2^16: FastDiv's range
 constexpr int kMaxKw = 7;
 constexpr int kStage = 8;        // global loads a thread keeps in flight while staging
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // floor(n / d) for n < 2^16 by a multiply-high (exact there for every d).
 struct FastDiv {
@@ -88,9 +84,9 @@ struct Geometry {
   int ci_tiles;
 };
 
-template <typename T, int KW, int CIT>
+template <int KW, int CIT>
 __global__ void __launch_bounds__(kThreads)
-per_user_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+per_user_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                    float* __restrict__ out, Geometry g) {
   constexpr int TCI = kTX * CIT;
   extern __shared__ float smem[];
@@ -137,7 +133,7 @@ per_user_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       // load at a time left the block waiting on memory most of the time
       const int x_total = TCI * nr * xw;
       for (int e0 = threadIdx.x; e0 < x_total; e0 += kThreads * kStage) {
-        T val[kStage];
+        float val[kStage];
         int dst[kStage];
 #pragma unroll
         for (int k = 0; k < kStage; ++k) {
@@ -152,16 +148,16 @@ per_user_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
           const int ci = ci0 + c;
           const bool live = ci < g.ci && h >= 0 && h < g.h && w >= 0 && w < g.w;
           val[k] = live ? x[((img0 + b0 + db) * g.ci + ci) * plane + (int64_t)h * g.w + w]
-                        : T(0.0f);
+                        : 0.0f;
           dst[k] = c * xs_plane + r * pitch + col;
         }
 #pragma unroll
         for (int k = 0; k < kStage; ++k)
-          if (e0 + k * kThreads < x_total) xs[dst[k]] = to_f32(val[k]);
+          if (e0 + k * kThreads < x_total) xs[dst[k]] = val[k];
       }
       const int d_total = kTCO * nr * nw;
       for (int e0 = threadIdx.x; e0 < d_total; e0 += kThreads * kStage) {
-        T val[kStage];
+        float val[kStage];
         int dst[kStage];
 #pragma unroll
         for (int k = 0; k < kStage; ++k) {
@@ -175,12 +171,12 @@ per_user_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
           const int co = co0 + c;
           val[k] = co < g.co
               ? dy[((img0 + b0 + db) * g.co + co) * plane + (int64_t)h * g.w + w0 + col]
-              : T(0.0f);
+              : 0.0f;
           dst[k] = c * ds_plane + r * g.cols + col;
         }
 #pragma unroll
         for (int k = 0; k < kStage; ++k)
-          if (e0 + k * kThreads < d_total) ds[dst[k]] = to_f32(val[k]);
+          if (e0 + k * kThreads < d_total) ds[dst[k]] = val[k];
       }
       __syncthreads();
 
@@ -233,8 +229,8 @@ per_user_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-template <typename T, int KW, int CIT>
-cudaError_t launch(const T* x, const T* dy, float* out, Geometry g,
+template <int KW, int CIT>
+cudaError_t launch(const float* x, const float* dy, float* out, Geometry g,
                    cudaStream_t stream) {
   constexpr int TCI = kTX * CIT;
   g.cols = min(g.w, kMaxCols);
@@ -247,33 +243,32 @@ cudaError_t launch(const T* x, const T* dy, float* out, Geometry g,
       ((size_t)TCI * ((g.rows_per_chunk * (g.cols + KW - 1)) | 1) +
        (size_t)kTCO * ((g.rows_per_chunk * g.cols) | 1));
   dim3 grid(g.ci_tiles * co_tiles, g.kh * g.splits, g.users);
-  cudaError_t err = cudaFuncSetAttribute(per_user_dw_kernel<T, KW, CIT>,
+  cudaError_t err = cudaFuncSetAttribute(per_user_dw_kernel<KW, CIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)(kSmemFloats * sizeof(float)));
   if (err != cudaSuccess) return err;
-  per_user_dw_kernel<T, KW, CIT><<<grid, kThreads, smem, stream>>>(x, dy, out, g);
+  per_user_dw_kernel<KW, CIT><<<grid, kThreads, smem, stream>>>(x, dy, out, g);
   return cudaGetLastError();
 }
 
-template <typename T, int KW>
-cudaError_t launch_kw(const T* x, const T* dy, float* out, const Geometry& g,
+template <int KW>
+cudaError_t launch_kw(const float* x, const float* dy, float* out, const Geometry& g,
                       cudaStream_t stream) {
   // few input channels (the stem's 3): a 16-wide tile wastes less
-  return g.ci <= 16 ? launch<T, KW, 1>(x, dy, out, g, stream)
-                    : launch<T, KW, 4>(x, dy, out, g, stream);
+  return g.ci <= 16 ? launch<KW, 1>(x, dy, out, g, stream)
+                    : launch<KW, 4>(x, dy, out, g, stream);
 }
 
-template <typename T>
-cudaError_t launch_any(const T* x, const T* dy, float* out, int kw,
+cudaError_t launch_any(const float* x, const float* dy, float* out, int kw,
                        const Geometry& g, cudaStream_t stream) {
   switch (kw) {
-    case 1: return launch_kw<T, 1>(x, dy, out, g, stream);
-    case 2: return launch_kw<T, 2>(x, dy, out, g, stream);
-    case 3: return launch_kw<T, 3>(x, dy, out, g, stream);
-    case 4: return launch_kw<T, 4>(x, dy, out, g, stream);
-    case 5: return launch_kw<T, 5>(x, dy, out, g, stream);
-    case 6: return launch_kw<T, 6>(x, dy, out, g, stream);
-    case 7: return launch_kw<T, 7>(x, dy, out, g, stream);
+    case 1: return launch_kw<1>(x, dy, out, g, stream);
+    case 2: return launch_kw<2>(x, dy, out, g, stream);
+    case 3: return launch_kw<3>(x, dy, out, g, stream);
+    case 4: return launch_kw<4>(x, dy, out, g, stream);
+    case 5: return launch_kw<5>(x, dy, out, g, stream);
+    case 6: return launch_kw<6>(x, dy, out, g, stream);
+    case 7: return launch_kw<7>(x, dy, out, g, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -282,15 +277,14 @@ cudaError_t launch_any(const T* x, const T* dy, float* out, int kw,
 
 extern "C" {
 
-// x: (users*batch, ci, h, w), dy: (users*batch, co, h, w), both bf16
-// (is_bf16) or float32, contiguous; out: (users, co, ci, kh, kw) float32.
-// 0 <= ph < kh and 0 <= pw < kw are the low pads.  The user's images are
-// reduced in `splits` ranges; with splits > 1, scratch holds
-// (splits, users, co, ci, kh, kw) float32 partial sums, which a second
-// launch adds in range order.  Returns cudaGetLastError() after the launches.
-int gqx_per_user_dw(const void* x, const void* dy, int is_bf16, int users,
-                    int batch, int ci, int co, int h, int w, int kh, int kw,
-                    int ph, int pw, int splits, float* scratch, float* out,
+// x: (users*batch, ci, h, w), dy: (users*batch, co, h, w), both float32,
+// contiguous; out: (users, co, ci, kh, kw) float32.  0 <= ph < kh and
+// 0 <= pw < kw are the low pads.  The user's images are reduced in `splits`
+// ranges; with splits > 1, scratch holds (splits, users, co, ci, kh, kw)
+// float32 partial sums, which a second launch adds in range order.  Returns
+// cudaGetLastError() after the launches.
+int gqx_per_user_dw(const void* x, const void* dy, int users, int batch, int ci, int co, int h,
+                    int w, int kh, int kw, int ph, int pw, int splits, float* scratch, float* out,
                     void* stream) {
   if (kw < 1 || kw > kMaxKw || splits < 1 || splits > batch || h >= (1 << 15))
     return (int)cudaErrorInvalidValue;
@@ -302,11 +296,8 @@ int gqx_per_user_dw(const void* x, const void* dy, int is_bf16, int users,
   g.rows_per_chunk = g.cols = g.ci_tiles = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dst = splits > 1 ? scratch : out;
-  cudaError_t err = is_bf16
-      ? launch_any(static_cast<const __nv_bfloat16*>(x),
-                   static_cast<const __nv_bfloat16*>(dy), dst, kw, g, s)
-      : launch_any(static_cast<const float*>(x), static_cast<const float*>(dy),
-                   dst, kw, g, s);
+  cudaError_t err = launch_any(static_cast<const float*>(x), static_cast<const float*>(dy), dst,
+                               kw, g, s);
   if (err != cudaSuccess || splits == 1) return (int)err;
   return (int)sum_splits(scratch, splits, (int64_t)users * co * ci * kh * kw, out, s);
 }

@@ -21,10 +21,13 @@ Which kernel, ``route`` decides from the dtype and the shapes alone:
 
 - ``"tensor_core"`` (``csrc/per_user_dw_tc.cu``): bf16 with at least 16
   input channels and kw <= 7, on bf16 ``mma.sync`` with float32
-  accumulation;
+  accumulation, one (co, ci) tile per tap;
+- ``"narrow"`` (``csrc/per_user_dw_narrow.cu``): bf16 with fewer than 16
+  input channels (the stem's 3) and kw <= 7, on bf16 ``mma.sync`` with the
+  (ci, tap) pairs as the columns of one GEMM whose depth is the pixels;
 - ``"cuda_core"`` (``csrc/per_user_dw.cu``): float32 (the tensor cores would
-  round its products, which the float32 FMAs keep exact) and inputs of few
-  channels (the stem's 3), on float32 FMAs.
+  round its products, which the float32 FMAs keep exact), on float32 FMAs;
+  kw > 7 takes this route too and raises.
 """
 
 from __future__ import annotations
@@ -37,21 +40,28 @@ import torch.nn.functional as F
 
 from gqx_torch.ops import _build
 
-TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+TENSOR_CORE, NARROW, CUDA_CORE = "tensor_core", "narrow", "cuda_core"
 
-#: launches of either CUDA kernel (not of the plain version), and by route;
-#: ``launches`` is always the sum of ``launches_by_route``
+#: launches of any of the CUDA kernels (not of the plain version), and by
+#: route; ``launches`` is always the sum of ``launches_by_route``
 launches = 0
-launches_by_route = {TENSOR_CORE: 0, CUDA_CORE: 0}
+launches_by_route = {TENSOR_CORE: 0, NARROW: 0, CUDA_CORE: 0}
 
 MAX_KW = 7            # the kernels keep a kw-wide window of taps per block
-_TILE_CO = 64         # output channels per block, both routes
+_TILE_CO = 64         # output channels per block, every route
 # per route: the library, its C entry, blocks per multiprocessor (kBlocksPerSM
-# of the tensor-core kernel) and taps of a row per block
+# of the tensor-core and narrow kernels) and taps of a row per block
 _ROUTES = {
     CUDA_CORE: ("per_user_dw", "gqx_per_user_dw", 2, MAX_KW),
     TENSOR_CORE: ("per_user_dw_tc", "gqx_per_user_dw_tc", 3, 3),
+    NARROW: ("per_user_dw_narrow", "gqx_per_user_dw_narrow", 2, MAX_KW),
 }
+# the narrow route: (ci, tap) columns per block, dy pixels of a piece at
+# most, and the shared memory its staged x planes aim for and may take
+_NARROW_TILE_N = 32
+_NARROW_PIXELS = 1024
+_NARROW_STAGE = 32 * 1024
+_NARROW_MAX_STAGE = 2 * ((1 << 16) - 1024)   # kMaxStaged of the kernel, in bytes
 
 
 def _check(x, dy, users, kh, kw, ph, pw):
@@ -88,8 +98,8 @@ def per_user_dw_plain(x: torch.Tensor, dy: torch.Tensor, users: int,
 
 def route(dtype: torch.dtype, ci: int, kw: int) -> str:
     """The kernel that a CUDA call takes, from its dtype and shapes alone."""
-    if dtype == torch.bfloat16 and ci >= 16 and kw <= MAX_KW:
-        return TENSOR_CORE
+    if dtype == torch.bfloat16 and kw <= MAX_KW:
+        return TENSOR_CORE if ci >= 16 else NARROW
     return CUDA_CORE
 
 
@@ -106,19 +116,51 @@ def batch_splits(users: int, batch: int, ci: int, co: int, kh: int, sm_count: in
     _, _, per_sm, taps = _ROUTES[which]
     ci_tile = 16 if which == CUDA_CORE and ci <= 16 else 64
     blocks = users * kh * -(-kw // taps) * -(-ci // ci_tile) * -(-co // _TILE_CO)
-    slots = per_sm * sm_count
+    return _fewest_ranges(blocks, batch, per_sm * sm_count, min(batch, 16))
+
+
+def _fewest_ranges(blocks: int, units: int, slots: int, most: int) -> int:
+    """The fewest ranges (at most ``most``) of a user's ``units`` that fill
+    the card's ``slots`` at least once with ``blocks`` blocks per range, in
+    waves at least 90% full, counting a range as long as its longest;
+    failing that, the best filled."""
     best, best_fill = 1, 0.0
-    for want in range(1, min(batch, 16) + 1):
-        per = -(-batch // want)
-        splits = -(-batch // per)
+    for want in range(1, most + 1):
+        per = -(-units // want)
+        splits = -(-units // per)
         waves = -(-blocks * splits // slots)
-        # useful image-blocks over what the waves could hold
-        fill = blocks * batch / (waves * slots * per)
+        # useful unit-blocks over what the waves could hold
+        fill = blocks * units / (waves * slots * per)
         if fill > best_fill + 1e-9:
             best, best_fill = splits, fill
         if fill >= 0.9:
             break
     return best
+
+
+def _narrow_stage_bytes(ci: int, rows: int, w: int, kh: int, kw: int) -> int:
+    """Shared memory of the narrow kernel's staged x: per channel rows + kh - 1
+    rows of w + kw - 1 bf16 columns."""
+    return 2 * ci * (rows + kh - 1) * (w + kw - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_splits(users: int, batch: int, ci: int, co: int, h: int, w: int, kh: int, kw: int,
+                  sm_count: int):
+    """(band rows, ranges) of the narrow route.  A user's images are cut into
+    pieces, bands of rows that hold at most 1,024 pixels and whose staged x
+    fits 32 KB (one row at least), and its pieces into ranges.  The blocks,
+    one per (user, 64-row tile of Co, 32-column tile of the (ci, tap)
+    columns, range), run 2 per multiprocessor in waves; the ranges are chosen
+    as ``batch_splits`` chooses them, from every count up to the number of
+    pieces.  A function of the shapes and the card only, so the order of the
+    sum, and every bit of the result, repeats."""
+    rows = max(1, min(h, _NARROW_PIXELS // max(w, 1)))
+    while rows > 1 and _narrow_stage_bytes(ci, rows, w, kh, kw) > _NARROW_STAGE:
+        rows -= 1
+    pieces = batch * -(-h // rows)
+    blocks = users * -(-(ci * kh * kw) // _NARROW_TILE_N) * -(-co // _TILE_CO)
+    return rows, _fewest_ranges(blocks, pieces, _ROUTES[NARROW][2] * sm_count, pieces)
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,7 +174,7 @@ def _entry(which: str):
     name, entry = _ROUTES[which][:2]
     lib = _build.load(name)
     fn = getattr(lib, entry)
-    ints = 12 if which == CUDA_CORE else 11
+    ints = 12 if which == NARROW else 11
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * ints + \
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -142,10 +184,14 @@ def _entry(which: str):
 def _kernel(x, dy, users, kh, kw, ph, pw):
     if not (x.is_contiguous() and dy.is_contiguous()) or x.device != dy.device:
         raise ValueError("per_user_dw: x and dy must be contiguous on one device")
-    if kw > MAX_KW or x.shape[2] >= 1 << 15:
-        raise NotImplementedError(f"per_user_dw: no CUDA kernel for kw {kw} > {MAX_KW} "
-                                  f"or {x.shape[2]} >= 32768 rows")
     n, ci, h, w = x.shape
+    which = route(x.dtype, ci, kw)
+    if kw > MAX_KW or h >= 1 << 15:
+        raise NotImplementedError(f"per_user_dw: no CUDA kernel for kw {kw} > {MAX_KW} "
+                                  f"or {h} >= 32768 rows")
+    if which == NARROW and (w >= 1 << 15 or
+                            _narrow_stage_bytes(ci, 1, w, kh, kw) > _NARROW_MAX_STAGE):
+        raise NotImplementedError(f"per_user_dw: no narrow kernel for rows of {w} pixels")
     co = dy.shape[1]
     batch = n // users
     out = torch.empty((users, co, ci, kh, kw), dtype=torch.float32, device=x.device)
@@ -153,15 +199,17 @@ def _kernel(x, dy, users, kh, kw, ph, pw):
         return out
     if n == 0 or h * w == 0:
         return out.zero_()
-    which = route(x.dtype, ci, kw)
-    splits = batch_splits(users, batch, ci, co, kh, _sm_count(x.device), which, kw)
+    if which == NARROW:
+        rows, splits = narrow_splits(users, batch, ci, co, h, w, kh, kw, _sm_count(x.device))
+        extra = [rows]
+    else:
+        splits, extra = batch_splits(users, batch, ci, co, kh, _sm_count(x.device), which, kw), []
     scratch = (torch.empty((splits,) + tuple(out.shape), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
     lib, fn = _entry(which)
-    # the CUDA-core entry also takes the dtype; the tensor-core one is bf16 only
-    dtype_arg = [int(x.dtype == torch.bfloat16)] if which == CUDA_CORE else []
-    err = fn(x.data_ptr(), dy.data_ptr(), *dtype_arg, users, batch,
-             ci, co, h, w, kh, kw, ph, pw, splits,
+    # the narrow entry also takes the rows of a piece
+    err = fn(x.data_ptr(), dy.data_ptr(), users, batch,
+             ci, co, h, w, kh, kw, ph, pw, *extra, splits,
              scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
              _build.stream_ptr(x.device))
     _build.check(lib, err, f"per_user_dw ({which})")

@@ -54,6 +54,13 @@ def encode_smem_bytes(k: int, dim: int) -> int:
     return (k + 15) // 16 * 2 * (2 if dim > 16 else 1) * 32 * 8
 
 
+def decode_mean_smem_bytes(k: int, dim: int) -> int:
+    """Shared memory of the decode-mean kernel with one warp: the float32
+    codebook, its rows padded by 4 floats above dim 4, and the warp's staged
+    outputs (32 lanes x 32 + 4 floats at most)."""
+    return k * (dim if dim == 4 else dim + 4) * 4 + 32 * 36 * 4
+
+
 def encode_alignment(dim: int, dtype) -> int:
     """The bytes of one load of the encode kernel (a lane's dim/4 values of
     a row, in pieces of at most 4 bytes of bf16 or 16 of float32): its input
@@ -194,7 +201,9 @@ def _decode_mean_kernel(codes, u, codebook, dim, passes):
         raise ValueError(f"hsq_decode_mean: codes must be (U, M), got {tuple(codes.shape)}")
     if passes not in (1, 2):
         raise ValueError(f"hsq_decode_mean: passes must be 1 or 2, got {passes}")
-    _check_codebook(codebook, dim, u.device)
+    _check_codebook(codebook, dim, u.device, decode_mean_smem_bytes(codebook.shape[0], dim))
+    if codebook.data_ptr() % 16:
+        raise ValueError("hsq_decode_mean: the codebook must start on 16 bytes (float4 loads)")
     users, m = codes.shape
     out = torch.empty(m * dim, dtype=torch.float32, device=u.device)
     lib = _build.load("hsq_decode_mean")

@@ -121,6 +121,50 @@ def test_cuda_encode_repeats_bits(cuda_device, dim, k, code_dtype, dtype, passes
     assert torch.equal(u1.view(torch.int32), u2.view(torch.int32))
 
 
+def _decode_mean_codes(rng, pattern, users, m, k):
+    """(users, m) codes: random; all users on one code per subvector (one
+    distinct code); or every user on its own (users distinct codes)."""
+    if pattern == "random":
+        return rng.integers(0, k, (users, m))
+    base = rng.integers(0, k, m)
+    step = np.arange(users)[:, None] if pattern == "distinct" else np.zeros((users, 1), np.int64)
+    return (base[None] + step) % k
+
+
+@pytest.mark.parametrize("users", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("k,code_dtype", [(64, torch.uint8), (256, torch.uint8),
+                                          (1024, torch.int32)])
+@pytest.mark.parametrize("dim", [4, 8, 16, 32])
+def test_cuda_decode_mean_matches_plain(cuda_device, dim, k, code_dtype, passes, users):
+    """The fused decode-mean against its plain version at 517, 4,096 and
+    4,099 subvectors (ragged and misaligned rows: element loads; 4,096:
+    vector loads, and element loads again with u starting 4 bytes off),
+    for random codes, one code per subvector and all codes distinct; 8
+    users take the kernel's fixed user count, the others its loop.  1e-6 of
+    the summed magnitudes (only the order of the float32 additions of at
+    most U terms differs), and two runs give the same bits."""
+    rng = np.random.default_rng(dim * k + 10 * passes + users)
+    cb = torch.from_numpy(_codebook(dim + k, k, dim)).to(cuda_device)
+    for m, offset in ((517, 0), (4096, 0), (4096, 1), (4099, 0)):
+        for pattern in ("random", "same", "distinct"):
+            codes = torch.from_numpy(_decode_mean_codes(rng, pattern, users, m, k)).to(
+                cuda_device, code_dtype)
+            scales = rng.standard_normal((users, m)) * 10.0 ** rng.uniform(-4, 1, (users, m))
+            flat = torch.zeros(users * m + offset, device=cuda_device)
+            u = flat[offset:].view(users, m)
+            u.copy_(torch.from_numpy(scales.astype(np.float32)))
+            before = hsq_ops.launches["hsq_decode_mean"]
+            got = hsq_ops.hsq_decode_mean(codes, u, cb, dim, passes)
+            again = hsq_ops.hsq_decode_mean(codes, u, cb, dim, passes)
+            want = hsq_ops.hsq_decode_mean_plain(codes, u, cb, dim, passes)
+            tol = 1e-6 * hsq_ops.hsq_decode_mean_plain(codes, u.abs(), cb.abs(), dim, 2)
+            assert hsq_ops.launches["hsq_decode_mean"] == before + 2
+            assert got.shape == (m * dim,) and got.dtype == torch.float32
+            assert bool(((got - want).abs() <= tol).all()), (m, offset, pattern)
+            assert torch.equal(got, again)
+
+
 def test_cuda_wrappers_refuse_bad_input(cuda_device):
     cb = torch.from_numpy(_codebook(1, 256, 16)).to(cuda_device)
     x = torch.randn(2, 320, device=cuda_device)
@@ -260,14 +304,22 @@ def test_cuda_tensor_never_reaches_a_plain_version(cuda_device, monkeypatch):
     real = {(mod, name): getattr(mod, name) for mod, name in (
         (hsq_ops, "hsq_encode_flat_plain"), (hsq_ops, "hsq_decode_plain"),
         (hsq_ops, "hsq_decode_mean_plain"), (hsq_rows, "hsq_encode_plain"),
-        (hsq_rows, "hsq_decode_plain"))}
+        (hsq_rows, "hsq_decode_plain"), (dw_ops, "per_user_dw_plain"))}
     for mod, name in real:
         monkeypatch.setattr(mod, name, refuse)
     u, c = hsq_ops.hsq_encode_flat(rows.reshape(2, -1), cb, 16, 1)
     hsq_ops.hsq_decode_flat(c, u, cb, 16, 1)
-    hsq_ops.hsq_decode_mean(c, u, cb, 16, 1)
+    for users in (1, 2, 8):     # the decode-mean's specialised user counts and another
+        hsq_ops.hsq_decode_mean(c[:1].expand(users, -1).contiguous(),
+                                u[:1].expand(users, -1).contiguous(), cb, 16, 1)
     u, c = hsq_rows.hsq_encode(rows, cb, torch.uint8)
     hsq_rows.hsq_decode(c, u, cb)
+    by_route = dict(dw_ops.launches_by_route)
+    for ci, dtype in ((3, torch.bfloat16), (16, torch.bfloat16), (3, torch.float32)):
+        x = torch.randn(4, ci, 8, 8, device=cuda_device, dtype=dtype)
+        dw_ops.per_user_dw(x, torch.randn(4, 5, 8, 8, device=cuda_device, dtype=dtype),
+                           2, 3, 3, 1, 1)
+    assert dw_ops.launches_by_route == {k: v + 1 for k, v in by_route.items()}
     torch.cuda.synchronize()
     for (mod, name), fn in real.items():
         monkeypatch.setattr(mod, name, fn)
@@ -289,15 +341,15 @@ def _dw_tolerance(x, dy, users, kh, kw, ph, pw):
     return (n ** 0.5) * 2.0 ** -23 * mag + 1e-30
 
 
-TC, CC = dw_ops.TENSOR_CORE, dw_ops.CUDA_CORE
+TC, NW, CC = dw_ops.TENSOR_CORE, dw_ops.NARROW, dw_ops.CUDA_CORE
 
 
 @pytest.mark.parametrize("users,batch,ci,co,h,w,kh,kw,ph,pw,dtype,route", [
     (2, 4, 16, 32, 8, 8, 3, 3, 1, 1, torch.float32, CC),
-    (2, 4, 3, 64, 32, 32, 3, 3, 1, 1, torch.bfloat16, CC),      # the stem: 16-wide input tile
+    (2, 4, 3, 64, 32, 32, 3, 3, 1, 1, torch.bfloat16, NW),      # the stem: (ci, tap) columns
     (3, 5, 70, 65, 4, 4, 3, 3, 1, 1, torch.bfloat16, TC),       # ragged channel tiles, 4x4 plane
     (2, 3, 17, 9, 5, 7, 2, 2, 0, 1, torch.float32, CC),         # even window, uneven pads
-    (1, 2, 5, 6, 6, 9, 5, 5, 3, 1, torch.bfloat16, CC),         # pads that are not (k-1)/2
+    (1, 2, 5, 6, 6, 9, 5, 5, 3, 1, torch.bfloat16, NW),         # pads that are not (k-1)/2
     (2, 2, 8, 8, 3, 70, 1, 7, 0, 3, torch.float32, CC),         # rows wider than one column chunk
     (8, 32, 64, 64, 1, 1, 3, 2, 2, 0, torch.bfloat16, TC),      # a 1x1 plane: only one tap is not zero
     (1, 64, 20, 20, 2, 2, 4, 6, 1, 2, torch.float32, CC),       # the batch split in many ranges
@@ -308,6 +360,15 @@ TC, CC = dw_ops.TENSOR_CORE, dw_ops.CUDA_CORE
     (1, 64, 32, 16, 8, 8, 3, 3, 1, 1, torch.bfloat16, TC),      # the batch split in 16 ranges
     (2, 2, 16, 8, 3, 200, 1, 7, 0, 3, torch.bfloat16, TC),      # column chunks: a halo of data
     (2, 3, 20, 20, 5, 6, 2, 1, 1, 0, torch.bfloat16, TC),       # kw = 1
+    # the narrow route: bf16 with fewer than 16 input channels
+    (1, 4, 1, 8, 9, 7, 3, 7, 2, 5, torch.bfloat16, NW),         # ci 1, kw 7, W = 7: 2-byte loads
+    (8, 4, 3, 64, 32, 32, 3, 3, 1, 1, torch.bfloat16, NW),      # 8 users, 16-byte loads
+    (2, 3, 8, 24, 6, 70, 2, 2, 1, 0, torch.bfloat16, NW),       # ci 8, W = 70, even window
+    (2, 2, 15, 70, 7, 70, 7, 7, 3, 2, torch.bfloat16, NW),      # 735 columns: 23 tiles; co 70
+    (8, 32, 3, 64, 1, 1, 3, 3, 2, 0, torch.bfloat16, NW),       # a 1x1 plane
+    (1, 64, 8, 20, 5, 7, 5, 5, 1, 3, torch.bfloat16, NW),       # 64 ranges, kw 5, pads (1, 3)
+    (3, 5, 15, 16, 4, 4, 2, 1, 0, 0, torch.bfloat16, NW),       # ci 15, kw 1
+    (1, 3, 3, 8, 33, 31, 3, 3, 1, 1, torch.bfloat16, NW),       # 33 x 31: a piece of 33 rows
 ])
 def test_cuda_per_user_dw_matches_plain(cuda_device, users, batch, ci, co, h, w, kh, kw, ph, pw,
                                         dtype, route):

@@ -140,8 +140,9 @@ def test_batch_splits_fill_the_card_and_leave_no_range_empty(shape, want):
     (torch.bfloat16, 64, 3, "tensor_core"),    # ResNet-50's 3x3 convs past the stem
     (torch.bfloat16, 16, 7, "tensor_core"),    # the narrowest input and widest window it takes
     (torch.bfloat16, 512, 1, "tensor_core"),
-    (torch.bfloat16, 3, 3, "cuda_core"),       # the stem
-    (torch.bfloat16, 15, 3, "cuda_core"),
+    (torch.bfloat16, 3, 3, "narrow"),          # the stem
+    (torch.bfloat16, 15, 3, "narrow"),         # the widest input it takes
+    (torch.bfloat16, 1, 7, "narrow"),          # the narrowest input and widest window
     (torch.float32, 64, 3, "cuda_core"),       # float32 keeps its exact FMAs
     (torch.float32, 3, 3, "cuda_core"),
     (torch.bfloat16, 64, 8, "cuda_core"),      # beyond MAX_KW: the CUDA-core wrapper raises
@@ -160,3 +161,27 @@ def test_tensor_core_batch_splits(shape, kw, want):
     assert splits == want
     per = -(-shape[1] // splits)
     assert 1 <= splits <= shape[1] and (splits - 1) * per < shape[1]
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 32, 3, 64, 32, 32, 3, 3), (32, 32)),     # the ResNet-50 stem: a piece is an image
+    ((2, 4, 3, 64, 32, 32, 3, 3), (32, 4)),
+    ((1, 64, 3, 16, 8, 8, 3, 3), (8, 64)),        # one user: a range per image
+    ((2, 2, 15, 70, 7, 70, 7, 7), (7, 2)),        # 735 columns: 23 column tiles, 2 co tiles
+    ((1, 2, 15, 8, 4, 300, 7, 7), (1, 8)),        # rows too wide for 32 KB: one row a piece
+    ((8, 32, 1, 8, 1, 1, 3, 2), (1, 32))])        # a 1x1 plane
+def test_narrow_splits_fill_the_card_and_leave_no_range_empty(shape, want):
+    """The narrow route's pieces (bands of rows, at most 1,024 pixels and
+    32 KB of staged x) and ranges of pieces: one block per (user, 64-row
+    tile of Co, 32-column tile of (ci, tap), range), 2 per multiprocessor."""
+    users, batch, ci, co, h, w, kh, kw = shape
+    rows, splits = dw_ops.narrow_splits(*shape, 132)
+    assert (rows, splits) == want
+    pieces = batch * -(-h // rows)
+    per = -(-pieces // splits)
+    assert 1 <= splits <= pieces and (splits - 1) * per < pieces     # no range is empty
+    assert rows * w <= 1024 or rows == 1
+    assert 2 * ci * (rows + kh - 1) * (w + kw - 1) <= 32 * 1024 or rows == 1
+    if shape == (8, 32, 3, 64, 32, 32, 3, 3):
+        blocks = users * -(-(ci * kh * kw) // 32) * -(-co // 64) * splits
+        assert blocks >= 132     # every multiprocessor of an H100 has a block
