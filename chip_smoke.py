@@ -12,8 +12,10 @@
    encode (on the tensor cores; at P1's, P2's and P3's shapes, timed by
    device time with CUDA events beside it), the fused decode-mean, the
    uniforms and the per-user decode at dim 16 / K 256, the row-major
-   encode and decode at dim 8 / K 1024, plus a ragged dim and a codebook
-   larger than shared memory; the per-user conv
+   encode (both routes: dim <= 32 on the tensor cores at P4's dim 8 / K
+   1024, bf16 and float32 rows; dim 256 on the CUDA cores at P6's shape)
+   and decode, plus ragged dims and a codebook larger than shared memory,
+   on both input types; the per-user conv
    weight gradient at the five 3x3 geometries of ResNet-50 (8 users x 32,
    bf16: the stem on the narrow kernel, the four others on the
    tensor-core kernel), at the five of ResNet-18 in float32 (the CUDA-core
@@ -29,13 +31,19 @@
          (canonical);
      P2  P1 with error feedback and the two-phase downlink;
      P3  P1 as a chain ring;
-     P4  HSQ c_dim 8 / k_bit 10 (the row-major kernels);
-     P5  P1 with folded_users=False (the per-user loop), one step.
+     P4  HSQ c_dim 8 / k_bit 10 (the row-major kernels, the encode on the
+         tensor cores);
+     P5  P1 with folded_users=False (the per-user loop), one step;
+   and P6, HSQ c_dim 256 / k_bit 8 on the gradient unit of P1's plan through
+   the compressor's entry points (compress_batch, decode_mean; the encode
+   on the CUDA cores), its launches counted the same way.
    The counters must equal what the code implies (the per-user conv weight
    gradient: 13 tensor-core, 1 narrow and 0 CUDA-core launches per folded
-   step).  The aggregate of one more step of each of P1-P4 (and P2's new
+   step; the row-major encode by route).  The aggregate of one more step of
+   each of P1-P4 (and P2's new
    error-feedback state) is recomputed on the CPU through the plain
-   versions from the same gradients, state and seed, and compared.
+   versions from the same gradients, state and seed, and compared; so is
+   P6's decode-mean.
 5. Compares folded and looped per-user gradients from the same weights and
    batch on the card: ResNet-18 float32 and ResNet-50 bf16, with the conv
    weight gradient's launches of each folded run counted (the float32 run
@@ -131,9 +139,16 @@ PATHS = {
            dict(hsq_encode=2, philox_uniform=2, hsq_decode=2)),
     "P3": (dict(mode="ring"), dict(hsq_encode="U", philox_uniform="U", hsq_decode="U")),
     "P4": (dict(c_dim=8, k_bit=10),
-           dict(hsq_rows_encode=1, philox_uniform=1, hsq_rows_decode=1)),
+           dict(hsq_rows_encode_tc=1, philox_uniform=1, hsq_rows_decode=1)),
     "P5": (dict(folded_users=False), dict(hsq_encode=1, philox_uniform=1, hsq_decode_mean=1)),
 }
+# P6, the path of the CUDA-core row-major encode: dim 256 is outside the flat
+# layout and above the tensor-core encode's 32.  No ResNet-50 training plan
+# reaches it (with c_dim 256 its ragged leaves get subvectors of 576, which
+# have no codebook), so it is the compressor on the gradient unit of P1's
+# plan; launches per call of compress_batch and decode_mean
+WIDE_ROWS = (dict(c_dim=256, k_bit=8),
+             dict(hsq_rows_encode=1, philox_uniform=1, hsq_rows_decode=1))
 EF_EPOCH = 1.0   # the error-feedback scale is config.ef_scale(EF_EPOCH)
 
 # the stride-1 same-size 3x3 convs of CIFAR ResNet-50, whose per-user weight
@@ -330,13 +345,19 @@ def kernel_phase(seed: int):
     log(f"[philox_uniform] bit-equal to plain; mean {mean:.6f}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     b, by = bound(n * 4, n * 33.0, FP32_FLOPS)
-    entries["philox_uniform"] = dict(
+    # device time (torch.profiler), CUDA events beside it
+    kernel = lambda: rand_ops.uniform(7, 0, (users, m), dev)
+    library = lambda: torch.rand((users, m), generator=gen, device=dev)
+    entries["philox_uniform"] = e = dict(
         name="philox_uniform", route="cuda", source="gqx_torch/csrc/philox_uniform.cu",
         replaces="gqx/ops/pallas_rand.py:129", max_abs_err=0.0,
-        ms=cuda_ms(lambda: rand_ops.uniform(7, 0, (users, m), dev), 20),
-        plain_ms=cuda_ms(lambda: rand_ops.uniform_plain(7, 0, (users, m), dev), 3),
-        bound_ms=b, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.rand((users, m), generator=gen, device=dev), 20))
+        ms=device_ms(kernel, 20), events_ms=cuda_ms(kernel, 20),
+        plain_ms=device_ms(lambda: rand_ops.uniform_plain(7, 0, (users, m), dev), 3),
+        bound_ms=b, bound_by=by, library_ms=device_ms(library, 20),
+        library_events_ms=cuda_ms(library, 20))
+    log(f"[philox_uniform] {n} values: {e['ms']:.4f} ms device time (events {e['events_ms']:.4f} "
+        f"ms; bound {b:.4f} ms by {by}), library (torch.rand) {e['library_ms']:.4f} ms (events "
+        f"{e['library_events_ms']:.4f} ms)")
 
     # K2 on the signature the main path hands it: codes from K1, u dequantized
     norm = comp.norm_compressor
@@ -393,31 +414,40 @@ def kernel_phase(seed: int):
     codes_col = c_k.reshape(-1, 1).long()
     w_col = u_q.to(torch.bfloat16).to(torch.float32).reshape(-1, 1)
     b, by = bound(users * m * 5 + users * size * 4 + k * dim * 4, 1.0 * users * size, FP32_FLOPS)
-    entries["hsq_decode"] = dict(
+    # device time (torch.profiler), CUDA events beside it
+    kernel = lambda: hsq_ops.hsq_decode_flat(c_k, u_q, cb, dim, 1)
+    library = lambda: F.embedding_bag(codes_col, cb, per_sample_weights=w_col, mode="sum")
+    entries["hsq_decode"] = e = dict(
         name="hsq_decode", route="cuda", source="gqx_torch/csrc/hsq_decode.cu",
         replaces="gqx/ops/pallas_hsq4.py:191, gqx/ops/pallas_hsq3.py:253",
-        max_abs_err=err4,
-        ms=cuda_ms(lambda: hsq_ops.hsq_decode_flat(c_k, u_q, cb, dim, 1), 20),
-        plain_ms=cuda_ms(lambda: hsq_ops.hsq_decode_plain(c_k, u_q, cb, dim, 1), 3),
-        bound_ms=b, bound_by=by,
-        library_ms=cuda_ms(lambda: F.embedding_bag(codes_col, cb, per_sample_weights=w_col,
-                                                    mode="sum"), 5))
+        max_abs_err=err4, ms=device_ms(kernel, 20), events_ms=cuda_ms(kernel, 20),
+        plain_ms=device_ms(lambda: hsq_ops.hsq_decode_plain(c_k, u_q, cb, dim, 1), 3),
+        bound_ms=b, bound_by=by, library_ms=device_ms(library, 5),
+        library_events_ms=cuda_ms(library, 5))
+    log(f"[hsq_decode] {users} users x {m} subvectors of {dim}: {e['ms']:.4f} ms device time "
+        f"(events {e['events_ms']:.4f} ms; bound {b:.4f} ms by {by}), library (embedding_bag) "
+        f"{e['library_ms']:.4f} ms (events {e['library_events_ms']:.4f} ms)")
     return entries
 
 
-def check_rows_encode(rows, cb, code_dtype, name):
+def check_rows_encode(rows, cb, code_dtype, name, route):
     """Row-major kernel vs plain encode; returns (u, codes, max_abs_err).
     The two sum the dim fp32 products in different orders: a code may
     differ only where the top two |p| are within 1e-5 relative, and u may
-    differ by 1e-6 of the summed magnitudes |x| . |c|."""
+    differ by 1e-6 of the summed magnitudes |x| . |c|.  The launch must
+    take ``route``."""
     import torch
 
     from gqx_torch.ops import hsq_rows
 
+    before = dict(hsq_rows.launches_by_route)
     u_k, c_k = hsq_rows.hsq_encode(rows, cb, code_dtype)
+    moved = {key: v - before[key] for key, v in hsq_rows.launches_by_route.items()}
+    if moved[route] != 1 or sum(moved.values()) != 1:
+        raise AssertionError(f"{name}: launches by route {moved}, expected 1 on {route}")
     u_p, c_p = hsq_rows.hsq_encode_plain(rows, cb, code_dtype)
     torch.cuda.synchronize()
-    flat = rows.reshape(-1, rows.shape[-1])
+    flat = rows.reshape(-1, rows.shape[-1]).float()
     differ = (c_k != c_p).reshape(-1)
     n_differ = int(differ.sum())
     if n_differ:
@@ -433,16 +463,98 @@ def check_rows_encode(rows, cb, code_dtype, name):
         mag[blk] = (flat[blk].abs() * cb.abs()[c_p.reshape(-1)[blk].long()]).sum(1)
     if not bool((err <= 1e-6 * mag[same] + 1e-30).all()):
         raise AssertionError(f"{name}: u differs by up to {float(err.max())}")
-    log(f"[{name}] codes differing on near-ties: {n_differ} of {c_k.numel()}; "
+    log(f"[{name}] route {route}: codes differing on near-ties: {n_differ} of {c_k.numel()}; "
         f"max |u - u_plain| {float(err.max()):.3e}")
     return u_k, c_k, float(err.max())
 
 
+def rows_timing(label, rows, cb, code_dtype):
+    """K6 encode's device time (torch.profiler) and events at one shape,
+    against its bound and its plain version; returns the shape's record.
+    The bound counts the operations of the route: on the tensor cores the
+    exact bf16 pieces' passes (three for bf16 rows, six for float32) at the
+    bf16 peak, on the CUDA cores one fp32 multiply-add per product; the
+    latter is kept beside for every route (``fp32_fma_bound_ms``)."""
+    import torch
+
+    from gqx_torch.ops import hsq_rows
+
+    dim, k = rows.shape[-1], cb.shape[0]
+    n = rows.numel() // dim
+    which = hsq_rows.route(rows.dtype, dim)
+    macs = float(n) * k * dim
+    code_bytes = torch.empty(0, dtype=code_dtype).element_size()
+    moved = rows.numel() * rows.element_size() + n * (4 + code_bytes) + k * dim * 4
+    fma_ms, fma_by = bound(moved, 2.0 * macs, FP32_FLOPS)
+    b_ms, b_by = fma_ms, fma_by
+    if which == hsq_rows.TENSOR_CORE:
+        passes = 3 if rows.dtype == torch.bfloat16 else 6
+        b_ms, b_by = bound(moved, 2.0 * passes * macs, BF16_FLOPS)
+    kernel = lambda: hsq_rows.hsq_encode(rows, cb, code_dtype)
+    rec = dict(shape=label, route=which, rows=n, ms=device_ms(kernel, 10),
+               events_ms=cuda_ms(kernel, 10),
+               plain_ms=device_ms(lambda: hsq_rows.hsq_encode_plain(rows, cb, code_dtype), 1),
+               bound_ms=b_ms, bound_by=b_by, fp32_fma_bound_ms=fma_ms)
+    log(f"[hsq_rows_encode {label}] {n} rows of {dim}, K {k}, {str(rows.dtype)[6:]}, route "
+        f"{which}: {rec['ms']:.4f} ms device time (events {rec['events_ms']:.4f} ms; bound "
+        f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / rec['ms']:.1f}% of it; fp32 FMA bound "
+        f"{fma_ms:.4f} ms), plain {rec['plain_ms']:.3f} ms")
+    return rec
+
+
+def wide_rows_compressor(seed: int):
+    """P6's compressor: HSQ c_dim 256 / k_bit 8 for the gradient unit of
+    P1's plan (23,527,424 elements: 91,904 rows of 256, K = 256); returns
+    (unit, compressor)."""
+    from gqx_torch.compress import make_compressor
+
+    unit = hsq_unit(canonical_config(), seed)
+    comp = make_compressor("hsq", unit.size, (unit.size,), canonical_config(**WIDE_ROWS[0]))
+    if comp.flat_ok or (comp.dim, comp.K) != (256, 256):
+        raise AssertionError(f"P6's compressor is dim {comp.dim}, K {comp.K}, flat {comp.flat_ok}")
+    return unit, comp
+
+
+def wide_rows_path(seed: int):
+    """P6: one compress_batch and one decode_mean of 8 users' bf16 gradient
+    unit at c_dim 256 on the card, the launch counters set to 0 just before
+    and read just after; the mean against the CPU plain path from the same
+    input and seed (subvectors differing on near-tie codes or level
+    boundaries: at most 1e-3 of them).  Returns the launches."""
+    import torch
+
+    unit, comp = wide_rows_compressor(seed)
+    users = canonical_config().num_users
+    g = unit_input(unit, users, seed + 6).to(torch.bfloat16)
+    counters(reset=True)
+    mean = comp.decode_mean(comp.compress_batch(g, torch.Generator().manual_seed(seed)))
+    torch.cuda.synchronize()
+    launches = counters()
+    for kernel, count in launches.items():
+        if count != WIDE_ROWS[1].get(kernel, 0):
+            raise AssertionError(f"P6: {kernel} launched {count} times, expected "
+                                 f"{WIDE_ROWS[1].get(kernel, 0)}")
+    want = comp.decode_mean(comp.compress_batch(g.cpu(), torch.Generator().manual_seed(seed)))
+    if not bool(torch.isfinite(mean).all()) or mean.shape != (unit.size,):
+        raise AssertionError(f"P6: mean of shape {tuple(mean.shape)}, finite "
+                             f"{bool(torch.isfinite(mean).all())}")
+    bad = _subvectors_off(mean.cpu(), want, comp.dim)
+    log(f"[slice P6] HSQ c_dim 256 / k_bit 8, {users} users x {comp.M} rows of {comp.dim}, "
+        f"compress_batch + decode_mean: launches {launches}; {bad} of {comp.M} subvectors of the "
+        "mean differ from the CPU plain path")
+    if bad > 1e-3 * comp.M:
+        raise AssertionError(f"P6: {bad} subvectors differ from the CPU plain path")
+    return launches
+
+
 def rows_kernel_phase(seed: int):
-    """The row-major encode and decode against their plain versions at the
-    shapes of P4's unit (8 users x 2.94M rows, dim 8, K=1024), then at a
-    ragged dim (24) and with a codebook larger than shared memory
-    (dim 16 x K 4096 = 256 KB)."""
+    """The row-major encode and decode against their plain versions: the
+    encode's tensor-core route at the shape of P4's unit (8 users x 2.94M
+    rows, dim 8, K=1024) on bf16 rows (P4's unit) and float32 rows (the
+    unit with error feedback), its CUDA-core route at P6's (8 users x 91,904
+    rows of 256, K=256), both input types, then ragged dims (5, 24, 36),
+    dim 32, and codebooks larger than shared memory (dim 16 x K 4096 = 256
+    KB; dim 32 x K 1024 in pieces)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -457,24 +569,33 @@ def rows_kernel_phase(seed: int):
     if comp.flat_ok or (dim, k) != (8, 1024):
         raise AssertionError(f"P4's unit is dim {dim}, K {k}, flat layout {comp.flat_ok}")
     dev = torch.device("cuda")
-    rows = unit_input(unit, users, seed + 1).reshape(users, m, dim)
+    rows32 = unit_input(unit, users, seed + 1).reshape(users, m, dim)
     cb = comp.codebook(dev)
-    entries = {}
-
-    u_k, c_k, err = check_rows_encode(rows, cb, comp.code_dtype, "hsq_rows_encode dim 8 K 1024")
-    b, by = bound(users * m * dim * 4 + users * m * 8 + k * dim * 4,
-                  2.0 * users * m * k * dim, FP32_FLOPS)
-    entries["hsq_rows_encode"] = dict(
-        name="hsq_rows_encode", route="cuda", source="gqx_torch/csrc/hsq_rows_encode.cu",
-        replaces="gqx/ops/pallas_hsq.py:53", max_abs_err=err,
-        ms=cuda_ms(lambda: hsq_rows.hsq_encode(rows, cb, comp.code_dtype), 5),
-        plain_ms=cuda_ms(lambda: hsq_rows.hsq_encode_plain(rows, cb, comp.code_dtype), 1),
-        bound_ms=b, bound_by=by, library_ms=None)
+    entries, shapes, err = {}, [], 0.0
+    for label, rows in (("P4 bf16", rows32.to(torch.bfloat16)),
+                        ("P4 float32 (error feedback)", rows32)):
+        u_r, c_r, e = check_rows_encode(rows, cb, comp.code_dtype,
+                                        f"hsq_rows_encode {label} dim 8 K 1024",
+                                        hsq_rows.TENSOR_CORE)
+        err = max(err, e)
+        shapes.append(rows_timing(label, rows, cb, comp.code_dtype))
+        if rows.dtype == torch.bfloat16:
+            u_k, c_k = u_r, c_r          # the decode's input: P4's own signature
+        del rows, u_r, c_r
+    del rows32
+    p4 = shapes[0]
+    entries["hsq_rows_encode_tc"] = dict(
+        name="hsq_rows_encode_tc", route="cuda", source="gqx_torch/csrc/hsq_rows_encode_tc.cu",
+        engine="tensor cores: mma.sync m16n8k16 / m16n8k8 bf16 -> float32 on exact bf16 pieces "
+               "of the float32 values, selection from the accumulators",
+        replaces="gqx/ops/pallas_hsq.py:53", max_abs_err=err, ms=p4["ms"],
+        events_ms=p4["events_ms"], plain_ms=p4["plain_ms"], bound_ms=p4["bound_ms"],
+        bound_by=p4["bound_by"], fp32_fma_bound_ms=p4["fp32_fma_bound_ms"], library_ms=None,
+        shapes=shapes)
 
     # decode on the signature the main path hands it: u dequantized
     norm = comp.norm_compressor
     u_q = norm.decompress(norm.compress(u_k, torch.Generator().manual_seed(seed))).contiguous()
-    del rows
     d_k = hsq_rows.hsq_decode(c_k, u_q, cb)
     d_p = hsq_rows.hsq_decode_plain(c_k, u_q, cb)
     torch.cuda.synchronize()
@@ -487,30 +608,66 @@ def rows_kernel_phase(seed: int):
     w_col = u_q.reshape(-1, 1)
     b, by = bound(users * m * 8 + users * m * dim * 4 + k * dim * 4,
                   1.0 * users * m * dim, FP32_FLOPS)
-    entries["hsq_rows_decode"] = dict(
+    # device time (torch.profiler), CUDA events beside it
+    kernel = lambda: hsq_rows.hsq_decode(c_k, u_q, cb)
+    library = lambda: F.embedding_bag(codes_col, cb, per_sample_weights=w_col, mode="sum")
+    entries["hsq_rows_decode"] = e = dict(
         name="hsq_rows_decode", route="cuda", source="gqx_torch/csrc/hsq_rows_decode.cu",
         replaces="gqx/ops/pallas_hsq.py:119", max_abs_err=0.0,
-        ms=cuda_ms(lambda: hsq_rows.hsq_decode(c_k, u_q, cb), 20),
-        plain_ms=cuda_ms(lambda: hsq_rows.hsq_decode_plain(c_k, u_q, cb), 3),
-        bound_ms=b, bound_by=by,
-        library_ms=cuda_ms(lambda: F.embedding_bag(codes_col, cb, per_sample_weights=w_col,
-                                                    mode="sum"), 5))
+        ms=device_ms(kernel, 20), events_ms=cuda_ms(kernel, 20),
+        plain_ms=device_ms(lambda: hsq_rows.hsq_decode_plain(c_k, u_q, cb), 3),
+        bound_ms=b, bound_by=by, library_ms=device_ms(library, 5),
+        library_events_ms=cuda_ms(library, 5))
+    log(f"[hsq_rows_decode] {users} users x {m} rows of {dim}: {e['ms']:.4f} ms device time "
+        f"(events {e['events_ms']:.4f} ms; bound {b:.4f} ms by {by}), library (embedding_bag) "
+        f"{e['library_ms']:.4f} ms (events {e['library_events_ms']:.4f} ms)")
     del codes_col, w_col, u_k, c_k, u_q
 
-    # a ragged dim (register path, 24), one outside the register dims (36,
-    # rows in shared memory) and a codebook in several shared-memory tiles
+    # the CUDA-core route at P6's shape: rows of 256, bf16 (as P6 gets them)
+    # and float32
+    unit6, comp6 = wide_rows_compressor(seed)
+    cb6 = comp6.codebook(dev)
+    rows32 = unit_input(unit6, users, seed + 4).reshape(users, comp6.M, comp6.dim)
+    shapes, err = [], 0.0
+    for label, rows in (("P6 bf16", rows32.to(torch.bfloat16)), ("P6 float32", rows32)):
+        _, _, e = check_rows_encode(rows, cb6, comp6.code_dtype,
+                                    f"hsq_rows_encode {label} dim 256 K 256", hsq_rows.CUDA_CORE)
+        err = max(err, e)
+        shapes.append(rows_timing(label, rows, cb6, comp6.code_dtype))
+        del rows
+    del rows32
+    p6 = shapes[0]
+    entries["hsq_rows_encode"] = dict(
+        name="hsq_rows_encode", route="cuda", source="gqx_torch/csrc/hsq_rows_encode.cu",
+        engine="CUDA cores: fp32 FMA, a row per thread in shared memory",
+        replaces="gqx/ops/pallas_hsq.py:53", max_abs_err=err, ms=p6["ms"],
+        events_ms=p6["events_ms"], plain_ms=p6["plain_ms"], bound_ms=p6["bound_ms"],
+        bound_by=p6["bound_by"], fp32_fma_bound_ms=p6["fp32_fma_bound_ms"], library_ms=None,
+        shapes=shapes)
+
+    # ragged dims (5 and 24 zero-padded in the tensor-core fragments, 36 on
+    # the CUDA cores), dim 32, and codebooks in several shared-memory K-tiles;
+    # 7 codewords (no learned codebook has so few) are random unit vectors
     rng = np.random.default_rng(seed + 2)
-    for d, kk, n in ((24, 256, 200_000), (36, 64, 50_000), (16, 4096, 200_000)):
-        cb_s = torch.from_numpy(get_codebook(d, kk)).to(dev)
+    for d, kk, n in ((5, 7, 200_000), (24, 256, 200_000), (32, 1024, 100_000),
+                     (36, 64, 50_000), (16, 4096, 200_000)):
+        if kk < 32:
+            cb_np = rng.standard_normal((kk, d)).astype(np.float32)
+            cb_np /= np.linalg.norm(cb_np, axis=1, keepdims=True)
+        else:
+            cb_np = get_codebook(d, kk)
+        cb_s = torch.from_numpy(cb_np).to(dev)
         rows_s = torch.from_numpy(rng.standard_normal((2, n, d), dtype=np.float32)).to(dev)
         dt = torch.uint8 if kk <= 256 else torch.int32
-        name = f"hsq_rows_encode dim {d} K {kk}"
-        u_s, c_s, _ = check_rows_encode(rows_s, cb_s, dt, name)
-        if not torch.equal(hsq_rows.hsq_decode(c_s, u_s, cb_s),
-                           hsq_rows.hsq_decode_plain(c_s, u_s, cb_s)):
-            raise AssertionError(f"hsq_rows_decode dim {d} K {kk}: not bit-equal to plain")
-        log(f"[{name}] {cuda_ms(lambda: hsq_rows.hsq_encode(rows_s, cb_s, dt), 5):.4f} ms "
-            f"for {2 * n} rows; decode bit-equal to plain")
+        for x in (rows_s.to(torch.bfloat16), rows_s):
+            which = hsq_rows.route(x.dtype, d)
+            name = f"hsq_rows_encode dim {d} K {kk} {str(x.dtype)[6:]}"
+            u_s, c_s, _ = check_rows_encode(x, cb_s, dt, name, which)
+            if not torch.equal(hsq_rows.hsq_decode(c_s, u_s, cb_s),
+                               hsq_rows.hsq_decode_plain(c_s, u_s, cb_s)):
+                raise AssertionError(f"hsq_rows_decode dim {d} K {kk}: not bit-equal to plain")
+            log(f"[{name}] {device_ms(lambda: hsq_rows.hsq_encode(x, cb_s, dt), 5):.4f} ms "
+                f"device time for {2 * n} rows; decode bit-equal to plain")
     return entries
 
 
@@ -740,7 +897,7 @@ def counters(reset=False):
     from gqx_torch.ops import rand as rand_ops
 
     if reset:
-        for table in (hsq_ops.launches, hsq_rows.launches):
+        for table in (hsq_ops.launches, hsq_rows.launches, hsq_rows.launches_by_route):
             for key in table:
                 table[key] = 0
         rand_ops.launches = 0
@@ -751,7 +908,14 @@ def counters(reset=False):
     by_route = dw_ops.launches_by_route
     if dw_ops.launches != sum(by_route.values()):
         raise AssertionError(f"per_user_dw: {dw_ops.launches} launches, by route {by_route}")
-    return {**hsq_ops.launches, **hsq_rows.launches, "philox_uniform": rand_ops.launches,
+    rows_route = hsq_rows.launches_by_route
+    if hsq_rows.launches["hsq_rows_encode"] != sum(rows_route.values()):
+        raise AssertionError(f"hsq_rows_encode: {hsq_rows.launches['hsq_rows_encode']} launches, "
+                             f"by route {rows_route}")
+    return {**hsq_ops.launches, "hsq_rows_decode": hsq_rows.launches["hsq_rows_decode"],
+            "hsq_rows_encode": rows_route[hsq_rows.CUDA_CORE],
+            "hsq_rows_encode_tc": rows_route[hsq_rows.TENSOR_CORE],
+            "philox_uniform": rand_ops.launches,
             "per_user_dw": by_route[dw_ops.CUDA_CORE], "per_user_dw_tc": by_route[dw_ops.TENSOR_CORE],
             "per_user_dw_narrow": by_route[dw_ops.NARROW]}
 
@@ -1158,6 +1322,10 @@ def main():
             device_profile(state, step, batch, ms)
         del state, step, batch
         torch.cuda.empty_cache()
+    for kernel, count in wide_rows_path(args.seed).items():
+        entries[kernel]["launches"] += count
+        entries[kernel]["launches_by_path"]["P6"] = count
+    torch.cuda.empty_cache()
     # the float32 route of K7 is on no bf16 path: its path is the float32
     # folded gradients of the comparison with the loop
     for label, got in folded_vs_looped(args.seed).items():
@@ -1172,8 +1340,8 @@ def main():
     comparison_phase(args.seed, args.steps)
 
     order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
-             "hsq_rows_encode", "hsq_rows_decode", "per_user_dw", "per_user_dw_tc",
-             "per_user_dw_narrow")
+             "hsq_rows_encode", "hsq_rows_encode_tc", "hsq_rows_decode", "per_user_dw",
+             "per_user_dw_tc", "per_user_dw_narrow")
     print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -114,7 +114,12 @@ class HSQCompressor(Compressor):
             u, codes = hsq_ops.hsq_encode_flat(
                 x, self.codebook(x.device), self.dim, self.passes, self.code_dtype)
         else:
-            rows = vecs.reshape(users, self.M, self.dim).to(torch.float32).contiguous()
+            # the row-major encode reads bf16 rows as they are, anything
+            # else as float32
+            rows = vecs.reshape(users, self.M, self.dim)
+            if rows.dtype != torch.bfloat16:
+                rows = rows.to(torch.float32)
+            rows = rows.contiguous()
             u, codes = hsq_rows.hsq_encode(rows, self.codebook(rows.device), self.code_dtype)
         sig: Sig = {"codes": codes}
         sig["u"] = self.norm_compressor.compress(u, generator) if self.compressed_norm else u

@@ -36,6 +36,20 @@ def split_hi_lo(x: torch.Tensor):
     return hi, bf16_round(x - hi)
 
 
+def split_bf16_3(x: torch.Tensor):
+    """float32 -> (h, m, l), bf16-representable float32 with h + m + l == x
+    exactly: h = bf16(x), m = bf16(x - h), l = x - h - m (24 = 8 + 8 + 8
+    significand bits; every subtraction is exact).  Exact for 0 and for
+    |x| from 2^-110 up to the largest bf16; ``hsq_rows_encode_tc.cu``
+    splits rows and codebook so, and contracts the pieces on the tensor
+    cores, where a product of two bf16 values is exact in float32."""
+    x = x.to(torch.float32)
+    h = bf16_round(x)
+    r = x - h
+    m = bf16_round(r)
+    return h, m, r - m
+
+
 def bf16_exact_codebook(codebook: np.ndarray) -> np.ndarray:
     """Round codewords to bf16-representable float32 values
     (gqx/ops/pallas_hsq2.py:68-80): with them a bf16 x codeword product is

@@ -2,17 +2,20 @@
 
 These serve the (dim, K) outside the flat-layout kernels' envelope
 (``hsq_prep.supports_flat``): any subvector dim, any codebook size.  The
-arithmetic is plain float32, as gqx's kernels compute it at
+arithmetic is float32-accurate, as gqx's kernels compute it at
 ``Precision.HIGHEST``: the raw (not bf16-rounded) codebook, inputs not
 rounded, ``code = argmax |p|`` with the first index on a tie and
 ``u = p[code]`` (for p = [-3, 3]: code 0, u = -3, where the flat encode's
 ``pos >= -neg`` rule gives code 1), and the decode ``u * codebook[code]``.
 
 Each function has a wrapper and a plain PyTorch version.  The wrapper
-computes the plain version for CPU tensors and launches the CUDA kernel
-(``csrc/hsq_rows_encode.cu``, ``csrc/hsq_rows_decode.cu``) for CUDA tensors;
-there is no fallback from one to the other.  A leading users axis is
-covered by one launch.
+computes the plain version for CPU tensors and launches a CUDA kernel for
+CUDA tensors; there is no fallback from one to the other.  A leading users
+axis is covered by one launch.  The encode takes bf16 or float32 rows and
+has two routes (``route``): dims up to 32 on the tensor cores
+(``csrc/hsq_rows_encode_tc.cu``: exact bf16 pieces of the float32 values,
+``hsq_prep.split_bf16_3``), wider dims on the CUDA cores
+(``csrc/hsq_rows_encode.cu``).  The decode is ``csrc/hsq_rows_decode.cu``.
 """
 
 from __future__ import annotations
@@ -24,10 +27,17 @@ import torch
 from gqx_torch.ops import _build
 from gqx_torch.ops.hsq import check_signature
 
-#: launches of each CUDA kernel (not of the plain versions)
-launches = {"hsq_rows_encode": 0, "hsq_rows_decode": 0}
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 
-MAX_DIM = 256                  # the encode kernel keeps a row per thread
+#: launches of each CUDA kernel (not of the plain versions); the encode's
+#: by route too, ``launches["hsq_rows_encode"]`` being their sum
+launches = {"hsq_rows_encode": 0, "hsq_rows_decode": 0}
+launches_by_route = {TENSOR_CORE: 0, CUDA_CORE: 0}
+
+MAX_DIM = 256                  # the CUDA-core encode keeps a row per thread
+MAX_TC_DIM = 32                # the tensor-core encode pads a row to 8, 16, 24 or 32
+_ROUTES = {TENSOR_CORE: ("hsq_rows_encode_tc", "gqx_hsq_rows_encode_tc"),
+           CUDA_CORE: ("hsq_rows_encode", "gqx_hsq_rows_encode")}
 _CHUNK = 1 << 16               # rows per block of the plain encode
 
 
@@ -50,9 +60,20 @@ def hsq_encode_plain(rows: torch.Tensor, codebook: torch.Tensor,
     return u.reshape(lead), codes.reshape(lead)
 
 
+def route(dtype: torch.dtype, dim: int) -> str:
+    """The encode kernel a CUDA call with rows of ``dtype`` and ``dim``
+    takes: ``tensor_core`` for dim <= 32, ``cuda_core`` above."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"hsq_rows_encode: rows must be bf16 or float32, got {dtype}")
+    if not 1 <= dim <= MAX_DIM:
+        raise NotImplementedError(f"hsq_rows_encode: no CUDA kernel for dim {dim} > {MAX_DIM}")
+    return TENSOR_CORE if dim <= MAX_TC_DIM else CUDA_CORE
+
+
 def _encode_kernel(rows, codebook, code_dtype):
-    if rows.dtype != torch.float32 or not rows.is_contiguous() or rows.dim() not in (2, 3):
-        raise ValueError("hsq_rows_encode: rows must be contiguous float32 (M, dim) or "
+    if rows.dtype not in (torch.bfloat16, torch.float32) or not rows.is_contiguous() \
+            or rows.dim() not in (2, 3):
+        raise ValueError("hsq_rows_encode: rows must be contiguous bf16 or float32 (M, dim) or "
                          f"(U, M, dim), got {tuple(rows.shape)} {rows.dtype}")
     dim = rows.shape[-1]
     if codebook.dtype != torch.float32 or codebook.dim() != 2 or codebook.shape[1] != dim:
@@ -65,29 +86,35 @@ def _encode_kernel(rows, codebook, code_dtype):
     k = codebook.shape[0]
     if k < 1 or (code_dtype == torch.uint8 and k > 256):
         raise ValueError(f"hsq_rows_encode: {k} codewords do not fit {code_dtype} codes")
-    if not 1 <= dim <= MAX_DIM:
-        raise NotImplementedError(f"hsq_rows_encode: no CUDA kernel for dim {dim} > {MAX_DIM}")
+    which = route(rows.dtype, dim)
+    # the tensor-core kernel loads a row's pairs of values whole when dim is
+    # a multiple of 8
+    if which == TENSOR_CORE and dim % 8 == 0 and rows.data_ptr() % (2 * rows.element_size()):
+        raise ValueError("hsq_rows_encode: rows must start on a pair of values")
     lead = rows.shape[:-1]
     u = torch.empty(lead, dtype=torch.float32, device=rows.device)
     codes = torch.empty(lead, dtype=code_dtype, device=rows.device)
-    lib = _build.load("hsq_rows_encode")
-    fn = lib.gqx_hsq_rows_encode
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    source, entry = _ROUTES[which]
+    lib = _build.load(source)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(rows.data_ptr(), codebook.data_ptr(), k, dim, u.numel(), u.data_ptr(),
-             codes.data_ptr(), int(code_dtype == torch.uint8),
+    err = fn(rows.data_ptr(), int(rows.dtype == torch.bfloat16), codebook.data_ptr(), k, dim,
+             u.numel(), u.data_ptr(), codes.data_ptr(), int(code_dtype == torch.uint8),
              _build.stream_ptr(rows.device))
-    _build.check(lib, err, "hsq_rows_encode")
+    _build.check(lib, err, f"hsq_rows_encode ({which})")
     launches["hsq_rows_encode"] += 1
+    launches_by_route[which] += 1
     return u, codes
 
 
 def hsq_encode(rows: torch.Tensor, codebook: torch.Tensor, code_dtype=torch.int32):
-    """rows (M, dim) or (U, M, dim) float32, codebook (K, dim) float32 ->
-    (u float32, codes) of (M,) / (U, M): p = rows @ codebook^T in float32,
-    code = argmax |p| (first index), u = p[code]."""
+    """rows (M, dim) or (U, M, dim) bf16 or float32, codebook (K, dim)
+    float32 -> (u float32, codes) of (M,) / (U, M): p = rows @ codebook^T
+    with float32-accurate products, code = argmax |p| (first index),
+    u = p[code]."""
     if rows.device.type == "cpu":
         return hsq_encode_plain(rows, codebook, code_dtype)
     if rows.device.type != "cuda":

@@ -228,27 +228,73 @@ def _near_tie_only(rows, cb, c_kernel, c_plain):
     return ~differ
 
 
-@pytest.mark.parametrize("dim,k", [(8, 1024), (24, 64), (36, 100), (16, 4096), (5, 7)])
-def test_cuda_rows_kernels_match_plain(cuda_device, dim, k):
-    """Register path (8, 24), shared-memory path (36, 5), a codebook in
-    several shared-memory tiles (16 x 4096 = 256 KB)."""
+def _rows_codebook(rng, k, dim):
+    """Unit codewords in raw float32 with exact ties: a +v/-v pair (0, 1);
+    an equal pair in two lanes of a quad (2, 4); from K = 20 a -v in a later
+    group of the same lane (3, 19) and an equal pair in one lane's group
+    (5, 13); from K = 64 an equal pair across the codebook (6, K - 1), in
+    another shared-memory K-tile where the codebook has several.  Returns
+    the codebook and, per tie row of ``_rows_input``, its code."""
+    cb = rng.standard_normal((k, dim)).astype(np.float32)
+    cb /= np.linalg.norm(cb, axis=1, keepdims=True)
+    cb[0] = -cb[1]
+    cb[4] = cb[2]
+    codes = [0, 0, 2]
+    if k >= 20:
+        cb[19] = -cb[3]
+        cb[13] = cb[5]
+        codes += [3, 5]
+    if k >= 64:
+        cb[k - 1] = cb[6]
+        codes += [6]
+    return cb, codes
+
+
+def _rows_input(rng, cb, users, m):
+    """(users, m, dim) float32 rows; the first ones meet the ties of
+    ``_rows_codebook``: a zero row (code 0, u 0); 3 * c1 (p0 = -p1: code 0,
+    u < 0); 2 * c4 (= 2 * c2: code 2); -c19 (= c3: code 3, u > 0); c13
+    (= c5: code 5); c[K-1] (= c6: code 6)."""
+    k, dim = cb.shape
+    rows = rng.standard_normal((users, m, dim)).astype(np.float32)
+    rows[:, 0] = 0.0
+    rows[:, 1] = 3.0 * cb[1]
+    rows[:, 2] = 2.0 * cb[4]
+    if k >= 20:
+        rows[:, 3] = -cb[19]
+        rows[:, 4] = cb[13]
+    if k >= 64:
+        rows[:, 5] = cb[k - 1]
+    return rows
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [7, 64, 1024, 4096])
+@pytest.mark.parametrize("dim", [4, 5, 8, 16, 24, 32, 36])
+def test_cuda_rows_kernels_match_plain(cuda_device, dim, k, dtype):
+    """Both encode routes (dim <= 32 on the tensor cores, 36 on the CUDA
+    cores), bf16 and float32 rows, K from 7 to 4096 (above shared memory:
+    several K-tiles), 3,001 rows per user (not a multiple of 16 or of a
+    warp's rows), and the exact ties of ``_rows_codebook``, which must give
+    the first index."""
     rng = np.random.default_rng(dim * k)
-    cb_np = rng.standard_normal((k, dim)).astype(np.float32)
-    cb_np /= np.linalg.norm(cb_np, axis=1, keepdims=True)
-    cb_np[0] = -cb_np[1]                      # a +v/-v pair: the first index wins
+    cb_np, tie_codes = _rows_codebook(rng, k, dim)
     cb = torch.from_numpy(cb_np).to(cuda_device)
-    rows_np = rng.standard_normal((2, 3001, dim)).astype(np.float32)
-    rows_np[:, 0] = 0.0                       # zero row: code 0, u 0
-    rows_np[:, 1] = 3.0 * cb_np[1]            # p0 = -3|c|^2, p1 = +3|c|^2: code 0, u < 0
-    rows = torch.from_numpy(rows_np).to(cuda_device)
+    rows = torch.from_numpy(_rows_input(rng, cb_np, 2, 3001)).to(cuda_device, dtype)
     code_dtype = torch.uint8 if k <= 256 else torch.int32
-    before = dict(hsq_rows.launches)
+    which = hsq_rows.route(dtype, dim)
+    assert which == (hsq_rows.TENSOR_CORE if dim <= 32 else hsq_rows.CUDA_CORE)
+    before, by_route = dict(hsq_rows.launches), dict(hsq_rows.launches_by_route)
     u, c = hsq_rows.hsq_encode(rows, cb, code_dtype)
     up, cp = hsq_rows.hsq_encode_plain(rows, cb, code_dtype)
     assert c.dtype == code_dtype and u.shape == c.shape == (2, 3001)
-    assert bool((c[:, :2] == 0).all()) and bool((u[:, 0] == 0).all()) and bool((u[:, 1] < 0).all())
+    n = len(tie_codes)
+    assert torch.equal(c[:, :n].cpu(), torch.tensor([tie_codes] * 2, dtype=code_dtype))
+    assert bool((u[:, 0] == 0).all()) and bool((u[:, 1] < 0).all())
+    if k >= 20:
+        assert bool((u[:, 3] > 0).all())
     same = _near_tie_only(rows, cb, c, cp).reshape(c.shape)
-    mag = (rows.abs() @ cb.abs().t()).gather(2, cp.long()[..., None])[..., 0]
+    mag = (rows.float().abs() @ cb.abs().t()).gather(2, cp.long()[..., None])[..., 0]
     assert bool(((u - up).abs()[same] <= 1e-6 * mag[same]).all())
     dec = hsq_rows.hsq_decode(c, u, cb)
     assert dec.shape == (2, 3001, dim)
@@ -257,6 +303,24 @@ def test_cuda_rows_kernels_match_plain(cuda_device, dim, k):
     assert torch.equal(u1, u[1]) and torch.equal(c1, c[1])
     assert hsq_rows.launches == {"hsq_rows_encode": before["hsq_rows_encode"] + 2,
                                  "hsq_rows_decode": before["hsq_rows_decode"] + 1}
+    assert hsq_rows.launches_by_route == {**by_route, which: by_route[which] + 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_rows_encode_routes_move_their_counts(cuda_device, dtype):
+    """Each route's count moves by one per launch, the sum with it; two runs
+    give the same bits."""
+    rng = np.random.default_rng(11)
+    for dim, which in ((8, hsq_rows.TENSOR_CORE), (40, hsq_rows.CUDA_CORE)):
+        cb = torch.from_numpy(_rows_codebook(rng, 64, dim)[0]).to(cuda_device)
+        rows = torch.from_numpy(rng.standard_normal((3, 517, dim)).astype(np.float32)).to(
+            cuda_device, dtype)
+        before, by_route = hsq_rows.launches["hsq_rows_encode"], dict(hsq_rows.launches_by_route)
+        u1, c1 = hsq_rows.hsq_encode(rows, cb, torch.uint8)
+        assert hsq_rows.launches_by_route == {**by_route, which: by_route[which] + 1}
+        assert hsq_rows.launches["hsq_rows_encode"] == before + 1
+        u2, c2 = hsq_rows.hsq_encode(rows, cb, torch.uint8)
+        assert torch.equal(c1, c2) and torch.equal(u1.view(torch.int32), u2.view(torch.int32))
 
 
 def test_cuda_decode_and_rows_refuse_bad_input(cuda_device):
@@ -290,6 +354,9 @@ def test_cuda_decode_and_rows_refuse_bad_input(cuda_device):
     with pytest.raises(NotImplementedError):
         hsq_rows.hsq_encode(torch.randn(4, 300, device=cuda_device),
                             torch.randn(8, 300, device=cuda_device))
+    with pytest.raises(ValueError):    # the tensor-core route loads pairs: 2 bytes off
+        flat = torch.randn(2 * 20 * 16 + 1, device=cuda_device, dtype=torch.bfloat16)
+        hsq_rows.hsq_encode(flat[1:].view(2, 20, 16), cb)
 
 
 def test_cuda_tensor_never_reaches_a_plain_version(cuda_device, monkeypatch):

@@ -17,6 +17,7 @@ from gqx.config import GQConfig as GqxConfig
 from gqx_torch.compress import make_compressor
 from gqx_torch.config import GQConfig
 from gqx_torch.ops import hsq_rows
+from gqx_torch.ops.hsq_prep import split_bf16_3
 
 
 def _codebook(rng, k, dim):
@@ -159,3 +160,130 @@ def test_hsq_compressor_rows_path_matches_gqx(rng, interpret_rows_kernels, c_dim
     assert not np.any(bad & ~(differ | level))
     single = pt.roundtrip(torch.from_numpy(g[2]), None).numpy()
     np.testing.assert_array_equal(single, rt[2])
+
+
+# -- the tensor-core route's arithmetic, and bf16 rows -------------------------
+
+def _split_cases(rng):
+    """float32 values for the three-piece split: random over many binades,
+    +-0, powers of two, values next to bf16 rounding boundaries (halfway
+    points and their float32 neighbours), and large and tiny exponents
+    inside the exact range (2^-110 up to the largest bf16)."""
+    rand = (rng.standard_normal(4096) * 2.0 ** rng.integers(-60, 60, 4096)).astype(np.float32)
+    zeros = np.array([0.0, -0.0], np.float32)
+    powers = np.ldexp(np.float32(1.0), np.arange(-110, 128)).astype(np.float32)
+    powers = np.concatenate([powers, -powers])
+    # bf16 keeps 8 significand bits: a float32 whose low 16 bits are 0x8000 is
+    # halfway between two bf16 values
+    base = rng.integers(0x0C800000, 0x7F000000, 2048, dtype=np.uint32) & np.uint32(0xFFFF0000)
+    half = base | np.uint32(0x8000)
+    bounds = np.concatenate([half, half - 1, half + 1, base | np.uint32(0x7FFF),
+                             base | np.uint32(0xFFFF)]).view(np.float32)
+    bounds = np.concatenate([bounds, -bounds])
+    extremes = np.array([2.0 ** -110, 1.5 * 2.0 ** -110, 3.3895314e38, -3.3895314e38,
+                         1.2345678e-33, 1e-30, 7e37], np.float32)
+    return np.concatenate([rand, zeros, powers, bounds, extremes])
+
+
+def _is_bf16(t):
+    return torch.equal(t, t.to(torch.bfloat16).to(torch.float32))
+
+
+def test_split_bf16_3_is_exact(rng):
+    """h + m + l == x in float64, each piece bf16-representable, |m| <= 2^-8
+    |x| and |l| <= 2^-16 |x|, on the values the kernel may split."""
+    x = torch.from_numpy(_split_cases(rng))
+    h, m, l = split_bf16_3(x)
+    assert all(_is_bf16(p) for p in (h, m, l))
+    assert torch.equal(h.double() + m.double() + l.double(), x.double())
+    assert bool((m.abs() <= 2.0 ** -8 * x.abs()).all())
+    assert bool((l.abs() <= 2.0 ** -16 * x.abs()).all())
+    # -0 keeps its sign in h; a bf16 value is its own h
+    assert torch.equal(split_bf16_3(torch.tensor([-0.0]))[0].view(torch.int32),
+                       torch.tensor([-0.0]).view(torch.int32))
+    xb = x[torch.isfinite(x.to(torch.bfloat16))].to(torch.bfloat16).to(torch.float32)
+    hb, mb, lb = split_bf16_3(xb)
+    assert torch.equal(hb, xb) and not bool(mb.any()) and not bool(lb.any())
+
+
+@pytest.mark.parametrize("dim", [5, 8, 24, 32])
+def test_tensor_core_passes_within_tolerance(rng, dim):
+    """The products the tensor-core kernel sums, in float64: for bf16 rows
+    the three passes x.c_h + x.c_m + x.c_l equal x.c exactly; for float32
+    rows the six kept passes (mm, hl, lh, hm, mh, hh) miss x.c by less than
+    2^-23 of |x|.|c|, far inside the 1e-6 the kernel is held to."""
+    cb = torch.from_numpy(_codebook(rng, 64, dim))
+    rows = torch.from_numpy((rng.standard_normal((500, dim)) *
+                             2.0 ** rng.integers(-30, 30, (500, 1))).astype(np.float32))
+    exact = rows.double() @ cb.double().t()
+    mag = rows.double().abs() @ cb.double().abs().t()
+    c = [p.double() for p in split_bf16_3(cb)]
+    xb = rows.to(torch.bfloat16).to(torch.float32)
+    three = sum(xb.double() @ p.t() for p in c)
+    assert torch.equal(three, xb.double() @ cb.double().t())
+    x = [p.double() for p in split_bf16_3(rows)]
+    kept = [(1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0)]      # (x piece, c piece), h m l
+    six = sum(x[i] @ c[j].t() for i, j in kept)
+    assert bool(((six - exact).abs() <= 2.0 ** -23 * mag).all())
+
+
+@pytest.mark.parametrize("k", [7, 1024])
+@pytest.mark.parametrize("dim", [8, 24])
+def test_rows_encode_bf16_rows_equal_their_float32_cast(rng, dim, k):
+    """bf16 rows go to the plain version as they are: it widens them, so it
+    gives the bits it gives on their float32 cast, and agrees with gqx's
+    kernel (interpret mode) on that cast under the usual tolerance."""
+    cb = _codebook(rng, k, dim)
+    rows = torch.from_numpy(rng.standard_normal((2, 300, dim)).astype(np.float32))
+    rows[:, 0] = 0.0
+    rb = rows.to(torch.bfloat16)
+    before = dict(hsq_rows.launches), dict(hsq_rows.launches_by_route)
+    u_b, c_b = hsq_rows.hsq_encode(rb, torch.from_numpy(cb))
+    u_f, c_f = hsq_rows.hsq_encode(rb.to(torch.float32), torch.from_numpy(cb))
+    assert (dict(hsq_rows.launches), dict(hsq_rows.launches_by_route)) == before
+    assert torch.equal(u_b, u_f) and torch.equal(c_b, c_f)
+    cast = rb.to(torch.float32).numpy().reshape(-1, dim)
+    u_j, c_j = gqx_rows.hsq_encode(jnp.asarray(cast), jnp.asarray(cb), tile_m=256, interpret=True)
+    u_j, c_j = np.array(u_j), np.array(c_j)
+    u_t, c_t = u_b.numpy().reshape(-1), c_b.numpy().reshape(-1)
+    differ = c_t != c_j
+    assert np.all(_top2_margin(cast, cb)[differ] <= 1e-5)
+    mag = (np.abs(cast) @ np.abs(cb).T)[np.arange(len(cast)), c_j]
+    assert np.all(np.abs(u_t - u_j)[~differ] <= 1e-6 * mag[~differ])
+
+
+def test_compress_batch_takes_bf16_rows_as_they_are(rng, monkeypatch):
+    """A bf16 unit outside the flat layout (dim 8, K 1024) reaches the
+    row-major encode without a float32 copy; the signature is the one the
+    float32 copy gave."""
+    size = 8 * 900
+    cfg = GQConfig(quantizer="hsq", c_dim=8, k_bit=10, n_bit=6, random=True, hsq_passes=1)
+    pt = make_compressor("hsq", size, (size,), cfg)
+    assert not pt.flat_ok
+    g = torch.from_numpy(rng.standard_normal((3, size)).astype(np.float32)).to(torch.bfloat16)
+    seen = []
+    real = hsq_rows.hsq_encode
+
+    def spy(rows, codebook, code_dtype=torch.int32):
+        seen.append(rows.dtype)
+        return real(rows, codebook, code_dtype)
+
+    monkeypatch.setattr(hsq_rows, "hsq_encode", spy)
+    sig_b = pt.compress_batch(g, torch.Generator().manual_seed(5))
+    sig_f = pt.compress_batch(g.to(torch.float32), torch.Generator().manual_seed(5))
+    assert seen == [torch.bfloat16, torch.float32]
+    assert torch.equal(sig_b["codes"], sig_f["codes"])
+    for key in sig_f["u"]:
+        assert torch.equal(sig_b["u"][key], sig_f["u"][key])
+
+
+def test_rows_encode_route_is_a_function_of_dtype_and_dim():
+    for dtype in (torch.bfloat16, torch.float32):
+        assert [hsq_rows.route(dtype, d) for d in (1, 5, 8, 24, 32)] == [hsq_rows.TENSOR_CORE] * 5
+        assert [hsq_rows.route(dtype, d) for d in (33, 36, 256)] == [hsq_rows.CUDA_CORE] * 3
+        with pytest.raises(NotImplementedError):
+            hsq_rows.route(dtype, 257)
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(ValueError):
+            hsq_rows.route(dtype, 8)
+    assert set(hsq_rows.launches_by_route) == {hsq_rows.TENSOR_CORE, hsq_rows.CUDA_CORE}
