@@ -18,15 +18,17 @@
    on both input types; the per-user conv
    weight gradient at the five 3x3 geometries of ResNet-50 (8 users x 32,
    bf16: the stem on the narrow kernel, the four others on the
-   tensor-core kernel), at the five of ResNet-18 in float32 (the CUDA-core
-   kernel) and at odd ones on all three; and times kernel, plain version
-   and, where one exists, the PyTorch call computing the same function
-   (for the conv weight gradient, one grouped call for all users, with the
-   per-user calls beside it).
-4. Runs five training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute,
-   hsq_passes=1, random weights and data from --seed), each for one
-   warm-up step and --steps steps with the launch counters set to 0 just
-   before and read just after:
+   tensor-core kernel), at the five of ResNet-18 and ResNet-50 in float32
+   (the stem on the CUDA-core kernel, the others on the float32
+   tensor-core kernel, with the CUDA-core kernel timed beside it) and at
+   odd ones on all four; and times kernel, plain version and, where one
+   exists, the PyTorch call computing the same function (for the conv
+   weight gradient, one grouped call for all users, with the per-user
+   calls beside it).
+4. Runs six training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute
+   but for P7, hsq_passes=1, random weights and data from --seed), each for
+   one warm-up step and --steps steps with the launch counters set to 0
+   just before and read just after:
      P1  HSQ c_dim 16 / k_bit 8 / n_bit 6, parameter server, folded users
          (canonical);
      P2  P1 with error feedback and the two-phase downlink;
@@ -34,20 +36,23 @@
      P4  HSQ c_dim 8 / k_bit 10 (the row-major kernels, the encode on the
          tensor cores);
      P5  P1 with folded_users=False (the per-user loop), one step;
+     P7  P1 with float32 compute, gqx's default (float32 units; the conv
+         weight gradient on the float32 routes);
    and P6, HSQ c_dim 256 / k_bit 8 on the gradient unit of P1's plan through
    the compressor's entry points (compress_batch, decode_mean; the encode
    on the CUDA cores), its launches counted the same way.
    The counters must equal what the code implies (the per-user conv weight
-   gradient: 13 tensor-core, 1 narrow and 0 CUDA-core launches per folded
-   step; the row-major encode by route).  The aggregate of one more step of
-   each of P1-P4 (and P2's new
+   gradient per folded step: in bf16 13 tensor-core and 1 narrow launches,
+   in float32 13 float32 tensor-core and 1 CUDA-core launches; the
+   row-major encode by route).  The aggregate of one more step of each of
+   P1-P4 and P7 (and P2's new
    error-feedback state) is recomputed on the CPU through the plain
    versions from the same gradients, state and seed, and compared; so is
    P6's decode-mean.
 5. Compares folded and looped per-user gradients from the same weights and
    batch on the card: ResNet-18 float32 and ResNet-50 bf16, with the conv
-   weight gradient's launches of each folded run counted (the float32 run
-   is the path of the CUDA-core kernel: 14 launches).
+   weight gradient's launches of each folded run counted (the float32 run:
+   13 float32 tensor-core and 1 CUDA-core launches).
 6. Steps the four other configurations of the canonical comparison (sgd,
    qsgd2bit, terngrad, sign), folded; the qsgd and sign aggregates are
    recomputed on the CPU like the others.  Takes one eval step.
@@ -141,6 +146,9 @@ PATHS = {
     "P4": (dict(c_dim=8, k_bit=10),
            dict(hsq_rows_encode_tc=1, philox_uniform=1, hsq_rows_decode=1)),
     "P5": (dict(folded_users=False), dict(hsq_encode=1, philox_uniform=1, hsq_decode_mean=1)),
+    # gqx's default compute dtype: float32 units, the float32 K7 routes
+    "P7": (dict(compute_dtype="float32"),
+           dict(hsq_encode=1, philox_uniform=1, hsq_decode_mean=1)),
 }
 # P6, the path of the CUDA-core row-major encode: dim 256 is outside the flat
 # layout and above the tensor-core encode's 32.  No ResNet-50 training plan
@@ -154,13 +162,17 @@ EF_EPOCH = 1.0   # the error-feedback scale is config.ef_scale(EF_EPOCH)
 # the stride-1 same-size 3x3 convs of CIFAR ResNet-50, whose per-user weight
 # gradient the folded step takes from the per_user_dw kernels:
 # (Ci, Co, H = W, convs of that geometry); in bf16 the stem's 3 input
-# channels take the narrow kernel, the others the tensor-core kernel
+# channels take the narrow kernel, the others the tensor-core kernel; in
+# float32 (P7) the stem takes the CUDA-core kernel, the others the float32
+# tensor-core kernel
 DW_GEOMETRIES = ((3, 64, 32, 1), (64, 64, 32, 3), (128, 128, 16, 3),
                  (256, 256, 8, 5), (512, 512, 4, 2))
 DW_PER_STEP = {"per_user_dw_narrow": 1, "per_user_dw_tc": sum(g[3] for g in DW_GEOMETRIES[1:]),
-               "per_user_dw": 0}
-# the same convs of CIFAR ResNet-18, which the float32 folded gradients of
-# folded_vs_looped take from the CUDA-core kernel
+               "per_user_dw": 0, "per_user_dw_tc_f32": 0}
+DW_PER_STEP_F32 = {"per_user_dw_narrow": 0, "per_user_dw_tc": 0, "per_user_dw": 1,
+                   "per_user_dw_tc_f32": sum(g[3] for g in DW_GEOMETRIES[1:])}
+# the same convs of CIFAR ResNet-18 (the same five geometries, other
+# counts), which the float32 folded gradients of folded_vs_looped take
 DW_GEOMETRIES_F32 = ((3, 64, 32, 1), (64, 64, 32, 4), (128, 128, 16, 3),
                      (256, 256, 8, 3), (512, 512, 4, 3))
 
@@ -675,24 +687,32 @@ def dw_kernel_phase(seed: int):
     """The per-user conv weight gradient against its plain version: the five
     3x3 geometries of ResNet-50 at 8 users x 32 images in bf16 (the stem's 3
     input channels take the narrow kernel, the others the tensor-core
-    kernel, as the per-route counters must show), the five of ResNet-18 in
-    float32 (the CUDA-core kernel, which the float32 folded step of
-    ``folded_vs_looped`` runs), then odd ones: the stem's 3 channels in
-    float32 with an even window and uneven pads (CUDA cores); a 5x5 window
-    with uneven pads on a 7x9 plane with ragged channel tiles (tensor
-    cores); 15 channels under a 7x7 window on rows of 70 (735 columns, 23
-    column tiles) and one channel under a 3x7 window with pads (2, 5) on a
-    9x7 plane (narrow).
+    kernel, as the per-route counters must show), the same five in float32,
+    which ResNet-18 and ResNet-50 share (the stem on the CUDA-core kernel,
+    the others on the float32 tensor-core kernel, with the CUDA-core kernel
+    checked and timed beside it: the route it replaced), then odd ones: the
+    stem's 3 channels in float32 with an even window and uneven pads (CUDA
+    cores); a 5x5 window with uneven pads on a 7x9 plane with ragged
+    channel tiles (float32 and bf16 tensor cores); 15 channels under a 7x7
+    window on rows of 70 (735 columns, 23 column tiles) and one channel
+    under a 3x7 window with pads (2, 5) on a 9x7 plane (narrow).
 
     Tolerance: kernel and plain version add the same float32 products (exact
     for bf16 operands) in different orders, so they may differ by
     sqrt(n) * 2^-23 of the summed magnitudes, n = B*H*W terms per sum.
 
+    Bound: the operations the route runs at the card's peak for their type
+    (the float32 tensor-core route's six bf16 passes at the bf16 peak), or
+    the bytes; for float32 the fp32 FMA bound is kept beside
+    (``fp32_fma_bound_ms``).
+
     Returns one entry per route; its times are per training step: each
     geometry's time weighted by how many convs of the step have it (a
-    ResNet-50 bf16 step for the tensor-core and narrow routes, a ResNet-18
-    float32 step for the CUDA-core route).  They are device times from
-    torch.profiler, CUDA events beside them.  ``library_ms`` is the one
+    ResNet-50 bf16 step for the tensor-core and narrow routes, a ResNet-50
+    float32 step, P7's, for the float32 routes; the float32 tensor-core
+    entry also holds the whole float32 step of ResNet-18 and of ResNet-50,
+    every route and per_user_dw.cu on all 14 convs).  They are device times
+    from torch.profiler, CUDA events beside them.  ``library_ms`` is the one
     PyTorch call that computes every user's gradient (``conv2d_weight`` with
     groups = U on the users folded into the channels, float32 without TF32
     for float32 inputs); the U per-user calls are timed beside it."""
@@ -701,6 +721,7 @@ def dw_kernel_phase(seed: int):
     import torch.nn.functional as F
 
     from gqx_torch.ops import dw as dw_ops
+    from gqx_torch.scripts.dw_f32_probe import cuda_core_dw
 
     dev = torch.device("cuda")
     users, batch = 8, 32
@@ -736,6 +757,17 @@ def dw_kernel_phase(seed: int):
             "two runs bit-equal")
         return want_route, float(err.max())
 
+    def check_cuda_core(x, dy, u, name):
+        """per_user_dw.cu where the float32 tensor-core route runs, as it is
+        timed beside it: within the same tolerance of the plain version."""
+        got = cuda_core_dw(x, dy, u, 3, 3, 1, 1)
+        want = dw_ops.per_user_dw_plain(x, dy, u, 3, 3, 1, 1)
+        mag = dw_ops.per_user_dw_plain(x.abs(), dy.abs(), u, 3, 3, 1, 1)
+        n = x.shape[0] // u * x.shape[2] * x.shape[3]
+        if not bool(((got - want).abs() <= n ** 0.5 * 2.0 ** -23 * mag + 1e-30).all()):
+            raise AssertionError(f"per_user_dw.cu {name}: beyond sqrt(n) * 2^-23 of the summed "
+                                 "magnitudes")
+
     def per_user_library(x, dy, u, kh, kw, ph, pw):
         xp = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph))
         b = x.shape[0] // u
@@ -760,7 +792,19 @@ def dw_kernel_phase(seed: int):
             "library_events_ms")
     routes = {r: dict(tot=dict.fromkeys(keys, 0.0), worst=0.0,
                       by={"bytes": 0.0, "operations": 0.0}, geometries=[])
-              for r in (dw_ops.CUDA_CORE, dw_ops.TENSOR_CORE, dw_ops.NARROW)}
+              for r in (dw_ops.CUDA_CORE, dw_ops.TENSOR_CORE, dw_ops.NARROW,
+                        dw_ops.TENSOR_CORE_F32)}
+    # a float32 step of ResNet-18 and of ResNet-50 (P7): the same five
+    # geometries, other counts; the stem on the CUDA cores either way
+    step_keys = ("ms", "cuda_core_ms", "library_ms", "plain_ms", "bound_ms", "fp32_fma_bound_ms",
+                 "events_ms", "cuda_core_events_ms")
+    f32_counts = {"ResNet-18": {g[:3]: g[3] for g in DW_GEOMETRIES_F32},
+                  "ResNet-50": {g[:3]: g[3] for g in DW_GEOMETRIES}}
+    f32_steps = {net: dict.fromkeys(step_keys, 0.0) for net in f32_counts}
+    # the bound counts the operations the route runs: bf16 passes on the tensor
+    # cores (six over the exact pieces of float32 values), one fp32 FMA a product
+    # on the CUDA cores
+    passes = {dw_ops.TENSOR_CORE: 1, dw_ops.NARROW: 1, dw_ops.TENSOR_CORE_F32: 6}
     tf32 = torch.backends.cudnn.allow_tf32
     for dtype, geometries in ((torch.bfloat16, DW_GEOMETRIES), (torch.float32, DW_GEOMETRIES_F32)):
         size = 2 if dtype == torch.bfloat16 else 4
@@ -782,8 +826,9 @@ def dw_kernel_phase(seed: int):
                                              "computes something else")
                 del lib, ref
                 flop = 2.0 * 9 * users * batch * hw * hw * ci * co
-                b_ms, b_by = bound((x.numel() + dy.numel()) * size + users * co * ci * 9 * 4, flop,
-                                   BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+                moved = (x.numel() + dy.numel()) * size + users * co * ci * 9 * 4
+                b_ms, b_by = (bound(moved, passes[which] * flop, BF16_FLOPS) if which in passes
+                              else bound(moved, flop, FP32_FLOPS))
                 kernel = lambda: dw_ops.per_user_dw(x, dy, users, 3, 3, 1, 1)
                 plain = lambda: dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1)
                 per_user = lambda: per_user_library(x, dy, users, 3, 3, 1, 1)
@@ -794,11 +839,30 @@ def dw_kernel_phase(seed: int):
                          library_ms=device_ms(grouped, 5), per_user_library_ms=device_ms(per_user, 5),
                          events_ms=cuda_ms(kernel, 20), library_events_ms=cuda_ms(grouped, 5))
                 g["tflops"] = flop / g["ms"] * 1e-9
+                extra = ""
+                if dtype == torch.float32:
+                    g["per_step"] = {net: c[(ci, co, hw)] for net, c in f32_counts.items()}
+                    g["cuda_core_ms"], g["cuda_core_events_ms"] = g["ms"], g["events_ms"]
+                    g["fp32_fma_bound_ms"], _ = bound(moved, flop, FP32_FLOPS)
+                    if which == dw_ops.TENSOR_CORE_F32:
+                        # the same function on per_user_dw.cu, the route it replaced
+                        cuda_core = lambda: cuda_core_dw(x, dy, users, 3, 3, 1, 1)
+                        check_cuda_core(x, dy, users, name)
+                        g["cuda_core_ms"] = device_ms(cuda_core, 10)
+                        g["cuda_core_events_ms"] = cuda_ms(cuda_core, 10)
+                        extra = (f"; per_user_dw.cu {g['cuda_core_ms']:.4f} ms (events "
+                                 f"{g['cuda_core_events_ms']:.4f}); fp32 FMA bound "
+                                 f"{g['fp32_fma_bound_ms']:.4f} ms")
+                    for net, c in g["per_step"].items():
+                        for key in step_keys:
+                            f32_steps[net][key] += c * g[key]
+                    count = g["per_step"]["ResNet-50"]   # the route's entry: per P7 step
                 log(f"[per_user_dw {name}] route {which}: {g['ms']:.4f} ms = {g['tflops']:.1f} "
                     f"TFLOP/s (bound {b_ms:.4f} ms by {b_by}), plain {g['plain_ms']:.3f} ms, library "
                     f"(one conv2d_weight, groups={users}) {g['library_ms']:.4f} ms, (conv2d_weight "
                     f"per user) {g['per_user_library_ms']:.4f} ms; by events: kernel "
-                    f"{g['events_ms']:.4f}, library {g['library_events_ms']:.4f} ms; x{count} per step")
+                    f"{g['events_ms']:.4f}, library {g['library_events_ms']:.4f} ms{extra}; "
+                    f"x{g['per_step']} per step")
                 r["geometries"].append(g)
                 r["by"][b_by] += count * b_ms
                 for key in r["tot"]:
@@ -813,8 +877,17 @@ def dw_kernel_phase(seed: int):
         f"(bound {step['bound_ms']:.4f} ms), library {step['library_ms']:.4f} ms (per user "
         f"{step['per_user_library_ms']:.4f} ms); by events: {step['events_ms']:.4f} ms, library "
         f"{step['library_events_ms']:.4f} ms")
+    for net, t in f32_steps.items():
+        log(f"[per_user_dw per step] {net} float32, 14 convs (13 float32 tensor-core, the stem "
+            f"CUDA-core), device time: {t['ms']:.4f} ms; all 14 on per_user_dw.cu "
+            f"{t['cuda_core_ms']:.4f} ms; library (grouped conv2d_weight, TF32 off) "
+            f"{t['library_ms']:.4f} ms; plain {t['plain_ms']:.3f} ms; bound {t['bound_ms']:.4f} ms "
+            f"(six bf16 passes, the stem fp32 FMA), {t['fp32_fma_bound_ms']:.4f} ms (fp32 FMA); "
+            f"by events: {t['events_ms']:.4f} ms, per_user_dw.cu {t['cuda_core_events_ms']:.4f} ms")
     x, dy = make(3, 20, 32, 32, torch.float32, n=3 * 5)
     check(x, dy, 3, 2, 2, 0, 1, "3->20 @32x32 float32 2x2 pads (0,1)")
+    x, dy = make(24, 70, 7, 9, torch.float32, n=2 * 7)
+    check(x, dy, 2, 5, 5, 3, 1, "24->70 @7x9 float32 5x5 pads (3,1)")
     x, dy = make(24, 70, 7, 9, torch.bfloat16, n=2 * 7)
     check(x, dy, 2, 5, 5, 3, 1, "24->70 @7x9 bf16 5x5 pads (3,1)")
     x, dy = make(15, 70, 7, 70, torch.bfloat16, n=2 * 3)
@@ -823,7 +896,9 @@ def dw_kernel_phase(seed: int):
     check(x, dy, 1, 3, 7, 2, 5, "1->8 @9x7 bf16 3x7 pads (2,5)")
     sources = {dw_ops.CUDA_CORE: ("per_user_dw", "gqx_torch/csrc/per_user_dw.cu"),
                dw_ops.TENSOR_CORE: ("per_user_dw_tc", "gqx_torch/csrc/per_user_dw_tc.cu"),
-               dw_ops.NARROW: ("per_user_dw_narrow", "gqx_torch/csrc/per_user_dw_narrow.cu")}
+               dw_ops.NARROW: ("per_user_dw_narrow", "gqx_torch/csrc/per_user_dw_narrow.cu"),
+               dw_ops.TENSOR_CORE_F32: ("per_user_dw_tc_f32",
+                                        "gqx_torch/csrc/per_user_dw_tc_f32.cu")}
     entries = {}
     for which, (name, source) in sources.items():
         r = routes[which]
@@ -831,6 +906,14 @@ def dw_kernel_phase(seed: int):
                              replaces="gqx/ops/pallas_dw.py:128", max_abs_err=r["worst"],
                              bound_by=max(r["by"], key=r["by"].get),
                              geometries=r["geometries"], **r["tot"])
+    tf = entries["per_user_dw_tc_f32"]
+    tf["engine"] = ("tensor cores: mma.sync m16n8k16 bf16 -> float32 on exact bf16 pieces of the "
+                    "float32 values, 6 of the 9 cross products, hh and the rest in two sets")
+    tf["fp32_fma_bound_ms"] = sum(g["per_step"]["ResNet-50"] * g["fp32_fma_bound_ms"]
+                                  for g in tf["geometries"])
+    tf["cuda_core_ms"] = sum(g["per_step"]["ResNet-50"] * g["cuda_core_ms"]
+                             for g in tf["geometries"])
+    tf["float32_steps"] = f32_steps
     return entries
 
 
@@ -917,7 +1000,8 @@ def counters(reset=False):
             "hsq_rows_encode_tc": rows_route[hsq_rows.TENSOR_CORE],
             "philox_uniform": rand_ops.launches,
             "per_user_dw": by_route[dw_ops.CUDA_CORE], "per_user_dw_tc": by_route[dw_ops.TENSOR_CORE],
-            "per_user_dw_narrow": by_route[dw_ops.NARROW]}
+            "per_user_dw_narrow": by_route[dw_ops.NARROW],
+            "per_user_dw_tc_f32": by_route[dw_ops.TENSOR_CORE_F32]}
 
 
 def per_user_grads(cfg, state, plan, x, y):
@@ -1149,8 +1233,9 @@ def folded_vs_looped(seed: int):
     per-user gradients against the per-user loop's, at 8 users x 32.  BN
     biases are drawn from [1, 2], which keeps most ReLU inputs away from 0.
     Returns the per_user_dw launches of each folded run, counted from 0 just
-    before it: ResNet-18 float32 takes the CUDA-core kernel for its 14
-    stride-1 3x3 convs, ResNet-50 bf16 the 13 + 1 of a folded step.
+    before it: ResNet-18 float32 takes the float32 tensor-core kernel for 13
+    of its 14 stride-1 3x3 convs and the CUDA-core kernel for the stem,
+    ResNet-50 bf16 the 13 + 1 of a folded step.
 
     ResNet-18 in float32 (no TF32): the two routes differ by the summation
     order of cuDNN's algorithms for batch 256 and batch 32, about 1e-6, but
@@ -1199,8 +1284,7 @@ def folded_vs_looped(seed: int):
         counters(reset=True)
         loss_f, grads_f = folded_user_grads(model, plan, plan.names, x, y)
         got = {k: v for k, v in counters().items() if k.startswith("per_user_dw")}
-        want = ({"per_user_dw": sum(g[3] for g in DW_GEOMETRIES_F32), "per_user_dw_tc": 0,
-                 "per_user_dw_narrow": 0} if dtype == "float32" else DW_PER_STEP)
+        want = DW_PER_STEP_F32 if dtype == "float32" else DW_PER_STEP
         if got != want:
             raise AssertionError(f"folded {network} {dtype}: per_user_dw launches {got}, "
                                  f"expected {want}")
@@ -1298,24 +1382,28 @@ def main():
         cfg = canonical_config(**extra)
         steps = args.steps if cfg.folded_users else 1
         ms, losses, state, plan, step, batch, launches = run_steps(cfg, args.seed, steps, counters)
-        log(f"[slice {name}] resnet50 8x32 hsq {extra or 'canonical'} bf16: {ms:.2f} ms/step "
-            f"over {steps} steps, losses {[round(v, 4) for v in losses]}, "
+        log(f"[slice {name}] resnet50 8x32 hsq {extra or 'canonical'} {cfg.compute_dtype}: "
+            f"{ms:.2f} ms/step over {steps} steps, losses {[round(v, 4) for v in losses]}, "
             f"wire {plan.wire_bytes()} B/user/step")
         log(f"[slice {name}] launches: {launches}")
+        log(f"[slice {name}] conv weight gradient launches by route over {steps} steps: "
+            f"{ {k: v for k, v in launches.items() if k.startswith('per_user_dw')} }")
         hsq_units = sum(1 for u in plan.units if type(u.compressor).__name__ == "HSQCompressor")
+        dw_per_step = DW_PER_STEP_F32 if cfg.compute_dtype == "float32" else DW_PER_STEP
         for kernel, count in launches.items():
             n = per_step.get(kernel, 0)
             want = steps * hsq_units * (cfg.num_users if n == "U" else n)
-            if kernel in DW_PER_STEP:
-                want = steps * DW_PER_STEP[kernel] if cfg.folded_users else 0
+            if kernel in dw_per_step:
+                want = steps * dw_per_step[kernel] if cfg.folded_users else 0
             if count != want:
                 raise AssertionError(f"{name}: {kernel} launched {count} times in "
                                      f"{steps} steps, expected {want}")
             entries[kernel]["launches"] += count
             entries[kernel]["launches_by_path"][name] = count
-        if name == "P1":
+        if name in ("P1", "P7"):
             breakdown_and_reference(cfg, state, plan, step, batch, args.seed, ms)
-            eval_check(state, batch)
+            if name == "P1":
+                eval_check(state, batch)
         elif cfg.folded_users:
             aggregate_reference(name, cfg, state, plan, step, batch, args.seed, ms)
         else:
@@ -1326,12 +1414,13 @@ def main():
         entries[kernel]["launches"] += count
         entries[kernel]["launches_by_path"]["P6"] = count
     torch.cuda.empty_cache()
-    # the float32 route of K7 is on no bf16 path: its path is the float32
-    # folded gradients of the comparison with the loop
+    # the float32 folded gradients of the comparison with the loop run the
+    # float32 routes of K7 too
     for label, got in folded_vs_looped(args.seed).items():
         if "float32" in label:
-            entries["per_user_dw"]["launches"] += got["per_user_dw"]
-            entries["per_user_dw"]["launches_by_path"][label] = got["per_user_dw"]
+            for kernel in ("per_user_dw", "per_user_dw_tc_f32"):
+                entries[kernel]["launches"] += got[kernel]
+                entries[kernel]["launches_by_path"][label] = got[kernel]
     torch.cuda.empty_cache()
     for e in entries.values():
         if e["launches"] < 1:
@@ -1341,7 +1430,7 @@ def main():
 
     order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
              "hsq_rows_encode", "hsq_rows_encode_tc", "hsq_rows_decode", "per_user_dw",
-             "per_user_dw_tc", "per_user_dw_narrow")
+             "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32")
     print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,13 @@
 //   from the plain version.
 //   Selection (pallas_hsq4.py:40-51): pos = max p, neg = min p,
 //   u = pos if pos >= -neg else neg, code = first index whose p equals u.
-//   A zero row gives code 0 and u 0.
+//   A zero row gives code 0 and u 0.  The u written is then recomputed for
+//   the chosen code as the plain version computes it (dot_row): the same
+//   exact products added in element order.  The tensor cores' own sum
+//   rounds in another order, and the norm quantizer's levels follow each
+//   segment's min and max of u, so a rounding there moved every level of
+//   a segment (with float32 compute, thousands of subvectors of the
+//   aggregate off the CPU plain path in some runs).
 //
 // What bounds it on the H100: the 3.0 G products of a call at ResNet-50's
 // unit (8 x 1,470,464 rows of 16, K = 256), not its bytes (376 MB of bf16 in,
@@ -49,8 +55,8 @@
 //   it (FSETP), the group's index and its 4 products (predicated moves: 11
 //   instructions per 4 products in all).  A = the quad's maximum of m; a
 //   lane with m == A finds its first p == +A and first p == -A among the
-//   kept products; u = +A if the quad has one (max p >= -min p), else -A,
-//   and the code is the quad's first such index.  This is exact unless a
+//   kept products; the code is the quad's first index with +A if the quad
+//   has one (max p >= -min p), else its first with -A.  This is exact unless a
 //   lane's later group only ties m (FSETP, the 11th instruction): a -A
 //   kept first could hide a later +A.  Then the warp takes the exact scan
 //   (zero rows and exact ties only): the same mma again (the same bits)
@@ -63,7 +69,8 @@
 //   group, loads one task ahead, fewer row tiles per warp, and wgmma
 //   (m64n128k16, A from registers, the same bits) hardly moved the time.
 // - Each lane writes the u and code of one row tile's two rows per quad
-//   after the quad reduction (kTiles = 4: lane t writes tile t).
+//   after the quad reduction (kTiles = 4: lane t writes tile t), u summed
+//   again in element order from the row and the codeword (L1 hits).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -229,6 +236,44 @@ __device__ __forceinline__ void record(float p, float a, unsigned idx, unsigned&
   }
 }
 
+// u of a row for its code, in the plain version's order (ops/hsq.py
+// _dot_in_order): the products of bf16(x) with the codeword added in
+// element order from +0; at PASSES == 2 those of bf16(x - bf16(x))
+// likewise, the two sums then added.  Every product is exact in float32;
+// __fmul_rn / __fadd_rn keep the compiler from contracting them.  The row
+// is read as the main loads read it, a quarter (a lane's piece) at a time;
+// the codeword by 16-byte loads where the codebook allows (c16).
+template <int DIM, int PASSES, typename TIn>
+__device__ __forceinline__ float dot_row(const TIn* __restrict__ xr,
+                                         const float* __restrict__ c, bool c16) {
+  using F = Frag<DIM>;
+  using L = RowLoad<DIM, TIn>;
+  float cv[DIM];
+#pragma unroll
+  for (int e = 0; e < DIM; e += 4) {
+    const float4 q = c16 ? __ldg(reinterpret_cast<const float4*>(c + e))
+                         : make_float4(__ldg(c + e), __ldg(c + e + 1), __ldg(c + e + 2),
+                                       __ldg(c + e + 3));
+    cv[e] = q.x, cv[e + 1] = q.y, cv[e + 2] = q.z, cv[e + 3] = q.w;
+  }
+  float hi = 0.0f, lo = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    unsigned raw[L::kRaw];
+    load_row<DIM, TIn>(xr + q * F::kPer, true, raw);
+#pragma unroll
+    for (int i = 0; i < F::kPer; ++i) {
+      float v;
+      if constexpr (sizeof(TIn) == 4) v = __uint_as_float(raw[i]);
+      else v = __uint_as_float(i & 1 ? raw[i >> 1] & 0xffff0000u : raw[i >> 1] << 16);
+      const float vh = bf16_round(v), ce = cv[q * F::kPer + i];
+      hi = __fadd_rn(hi, __fmul_rn(vh, ce));
+      if constexpr (PASSES == 2) lo = __fadd_rn(lo, __fmul_rn(bf16_round(__fsub_rn(v, vh)), ce));
+    }
+  }
+  return PASSES == 2 ? __fadd_rn(hi, lo) : hi;
+}
+
 template <int DIM, int PASSES, typename TIn, typename TCode>
 __global__ void __launch_bounds__(kWarps * 32, 2) hsq_encode_tc_kernel(
     const TIn* __restrict__ x, const float* __restrict__ codebook, int k, int64_t rows,
@@ -256,6 +301,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2) hsq_encode_tc_kernel(
   __syncthreads();
 
   const int lane = threadIdx.x & 31, t = lane & 3;
+  const bool c16 = ((uintptr_t)codebook & 15) == 0;   // 16-byte codeword loads
   const int64_t tasks = (rows + kRowsPerWarp - 1) / kRowsPerWarp;
   for (int64_t task = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); task < tasks;
        task += (int64_t)gridDim.x * kWarps) {
@@ -386,8 +432,11 @@ __global__ void __launch_bounds__(kWarps * 32, 2) hsq_encode_tc_kernel(
       }
     }
 
-    // u = +A if a codeword gives +A (max p >= -min p), else -A; the code is
-    // the first such index of the quad.  Lane t writes row tile t.
+    // the code: the quad's first index with p = +A if a codeword gives +A
+    // (max p >= -min p), else its first with p = -A.  Lane t keeps the
+    // codes of row tile t, which it writes.
+    static_assert(kTiles == 4, "lane t of a quad writes row tile t");
+    unsigned mine[2] = {0u, 0u};
 #pragma unroll
     for (int r = 0; r < kTiles; ++r) {
 #pragma unroll
@@ -397,12 +446,23 @@ __global__ void __launch_bounds__(kWarps * 32, 2) hsq_encode_tc_kernel(
         ip = min(ip, __shfl_xor_sync(0xffffffffu, ip, 2));
         in = min(in, __shfl_xor_sync(0xffffffffu, in, 1));
         in = min(in, __shfl_xor_sync(0xffffffffu, in, 2));
-        const int64_t row = r0 + 16 * r + 8 * h;
-        if ((r & 3) == t && row < rows) {
-          const bool take_pos = ip != kNone;
-          u_out[row] = take_pos ? m[r][h] : -m[r][h];
-          codes_out[row] = (TCode)(take_pos ? ip : (in != kNone ? in : 0u));
-        }
+        if (r == t) mine[h] = ip != kNone ? ip : (in != kNone ? in : 0u);
+      }
+    }
+    // u: the code's products in element order, every lane at once
+    float u[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = r0 + 16 * t + 8 * h;
+      const float* c = codebook + (int64_t)mine[h] * DIM;
+      u[h] = row < rows ? dot_row<DIM, PASSES, TIn>(x + row * DIM, c, c16) : 0.0f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = r0 + 16 * t + 8 * h;
+      if (row < rows) {
+        u_out[row] = u[h];
+        codes_out[row] = (TCode)mine[h];
       }
     }
   }

@@ -84,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_util.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;                 // warps per block
@@ -110,25 +112,6 @@ struct Passes {
 // row tiles a warp holds: fewer where a row takes more A words
 __host__ __device__ constexpr int row_tiles(int n8, bool x32) {
   return x32 ? (n8 == 1 ? 4 : n8 == 2 ? 2 : 1) : (n8 <= 2 ? 4 : 2);
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// The three exact pieces of two values, as packed bf16 pairs.
-__device__ __forceinline__ void split3(float v0, float v1, unsigned (&w)[3]) {
-  const float h0 = bf16_round(v0), h1 = bf16_round(v1);
-  const float r0 = v0 - h0, r1 = v1 - h1;               // exact
-  const float m0 = bf16_round(r0), m1 = bf16_round(r1);
-  w[0] = pack_bf16(h0, h1);
-  w[1] = pack_bf16(m0, m1);
-  w[2] = pack_bf16(r0 - m0, r1 - m1);                   // exact, bf16-representable
 }
 
 // d = A B and d += A B, bf16 operands, float32 sums.

@@ -7,9 +7,14 @@
 // with x (U*B, Ci, H, W) and dy (U*B, Co, H, W) float32 in NCHW, xpad the
 // input with a zero border (ph, pw the low pads), and dW (U, Co, Ci, kh, kw)
 // float32 in the weight's OIHW layout, accumulated with float32 FMAs.  This
-// is the route of float32 inputs (ops/dw.py::route), whose products the
-// tensor cores would round; bf16 inputs take per_user_dw_tc.cu (16 input
-// channels or more) or per_user_dw_narrow.cu (fewer).
+// is the route of float32 inputs with fewer than 16 input channels (the
+// stem's 3; ops/dw.py::route).  Float32 inputs with 16 or more take
+// per_user_dw_tc_f32.cu (exact bf16 pieces on the tensor cores), bf16 inputs
+// per_user_dw_tc.cu (16 input channels or more) or per_user_dw_narrow.cu
+// (fewer).  The 64-channel tiling below serves no training path: it keeps
+// this kernel callable at the wider layers (through its C entry, by
+// chip_smoke.py and gqx_torch/scripts/dw_f32_probe.py), to be timed beside
+// the route that replaced it there.
 //
 // Replaces: gqx/ops/pallas_dw.py::per_user_dw (_dw_kernel) for float32
 // inputs.  The TPU kernel views both operands as (B*H*W, C) in NHWC, rolls
@@ -53,6 +58,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_util.cuh"
 #include "per_user_dw_sum.cuh"
 
 namespace {
@@ -66,16 +72,6 @@ constexpr int kMaxCols = 64;     // columns of a row staged at once
 constexpr int kSmemFloats = 96 * 1024 / 4;  // below 2^16: FastDiv's range
 constexpr int kMaxKw = 7;
 constexpr int kStage = 8;        // global loads a thread keeps in flight while staging
-
-// floor(n / d) for n < 2^16 by a multiply-high (exact there for every d).
-struct FastDiv {
-  unsigned d, m;
-  __device__ explicit FastDiv(int d_)
-      : d((unsigned)d_), m(d_ > 1 ? 0xFFFFFFFFu / (unsigned)d_ + 1u : 0u) {}
-  __device__ __forceinline__ int div(int n) const {
-    return d > 1 ? (int)__umulhi((unsigned)n, m) : n;
-  }
-};
 
 struct Geometry {
   int users, batch, ci, co, h, w, kh, ph, pw;

@@ -52,6 +52,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_util.cuh"
 #include "per_user_dw_sum.cuh"
 
 namespace {
@@ -72,16 +73,6 @@ constexpr int kMaxKw = 7;
 // the staged x of a piece, in bf16 elements, and the loads that may run past
 // it stay below 2^16: FastDiv's range
 constexpr int kMaxStaged = (1 << 16) - kThreads * kStage;
-
-// floor(n / d) for n < 2^16 by a multiply-high (exact there for every d).
-struct FastDiv {
-  unsigned d, m;
-  __device__ explicit FastDiv(int d_)
-      : d((unsigned)d_), m(d_ > 1 ? 0xFFFFFFFFu / (unsigned)d_ + 1u : 0u) {}
-  __device__ __forceinline__ int div(int n) const {
-    return d > 1 ? (int)__umulhi((unsigned)n, m) : n;
-  }
-};
 
 struct Geometry {
   int users, batch, ci, co, h, w, kh, kw, ph, pw;

@@ -1,5 +1,5 @@
-// The ordered reduction shared by both routes of the per-user conv weight
-// gradient (per_user_dw.cu, per_user_dw_tc.cu): where a user's images are
+// The ordered reduction shared by the routes of the per-user conv weight
+// gradient (per_user_dw*.cu): where a user's images are
 // cut into ranges, each range's partial sums land in their own slice and are
 // added here in range order, so two runs give the same bits.
 #pragma once

@@ -63,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_util.cuh"
 #include "per_user_dw_sum.cuh"
 
 namespace {
@@ -77,16 +78,6 @@ constexpr int kMaxKw = 7;
 // fit a multiprocessor; ops/dw.py's batch_splits counts on this
 constexpr int kBlocksPerSM = 3;
 constexpr int kTileRow = kTile * kJ + 1;   // floats per co of the output tile
-
-// floor(n / d) for n < 2^16 by a multiply-high (exact there for every d).
-struct FastDiv {
-  unsigned d, m;
-  __device__ explicit FastDiv(int d_)
-      : d((unsigned)d_), m(d_ > 1 ? 0xFFFFFFFFu / (unsigned)d_ + 1u : 0u) {}
-  __device__ __forceinline__ int div(int n) const {
-    return d > 1 ? (int)__umulhi((unsigned)n, m) : n;
-  }
-};
 
 struct Geometry {
   int users, batch, ci, co, h, w, kh, kw, ph, pw;
@@ -230,12 +221,6 @@ __device__ void stage_edges(const Operand& o, const Geometry& g, const Chunk& k,
     v.w = pack(val[6], val[7]);
     *reinterpret_cast<uint4*>(o.tile + p * kPitch + grp * 8) = v;
   }
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,

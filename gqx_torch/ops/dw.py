@@ -25,9 +25,13 @@ Which kernel, ``route`` decides from the dtype and the shapes alone:
 - ``"narrow"`` (``csrc/per_user_dw_narrow.cu``): bf16 with fewer than 16
   input channels (the stem's 3) and kw <= 7, on bf16 ``mma.sync`` with the
   (ci, tap) pairs as the columns of one GEMM whose depth is the pixels;
-- ``"cuda_core"`` (``csrc/per_user_dw.cu``): float32 (the tensor cores would
-  round its products, which the float32 FMAs keep exact), on float32 FMAs;
-  kw > 7 takes this route too and raises.
+- ``"tensor_core_f32"`` (``csrc/per_user_dw_tc_f32.cu``): float32 with at
+  least 16 input channels and kw <= 7, the tensor-core route's design on
+  exact bf16 pieces of the float32 values (six of the nine cross products
+  per fragment pair, at float32 accuracy);
+- ``"cuda_core"`` (``csrc/per_user_dw.cu``): float32 with fewer than 16
+  input channels (the stem's 3), on float32 FMAs; kw > 7 takes this route
+  too and raises.
 """
 
 from __future__ import annotations
@@ -41,11 +45,12 @@ import torch.nn.functional as F
 from gqx_torch.ops import _build
 
 TENSOR_CORE, NARROW, CUDA_CORE = "tensor_core", "narrow", "cuda_core"
+TENSOR_CORE_F32 = "tensor_core_f32"
 
 #: launches of any of the CUDA kernels (not of the plain version), and by
 #: route; ``launches`` is always the sum of ``launches_by_route``
 launches = 0
-launches_by_route = {TENSOR_CORE: 0, NARROW: 0, CUDA_CORE: 0}
+launches_by_route = {TENSOR_CORE: 0, NARROW: 0, CUDA_CORE: 0, TENSOR_CORE_F32: 0}
 
 MAX_KW = 7            # the kernels keep a kw-wide window of taps per block
 _TILE_CO = 64         # output channels per block, every route
@@ -55,6 +60,7 @@ _ROUTES = {
     CUDA_CORE: ("per_user_dw", "gqx_per_user_dw", 2, MAX_KW),
     TENSOR_CORE: ("per_user_dw_tc", "gqx_per_user_dw_tc", 3, 3),
     NARROW: ("per_user_dw_narrow", "gqx_per_user_dw_narrow", 2, MAX_KW),
+    TENSOR_CORE_F32: ("per_user_dw_tc_f32", "gqx_per_user_dw_tc_f32", 2, 3),
 }
 # the narrow route: (ci, tap) columns per block, dy pixels of a piece at
 # most, and the shared memory its staged x planes aim for and may take
@@ -98,9 +104,11 @@ def per_user_dw_plain(x: torch.Tensor, dy: torch.Tensor, users: int,
 
 def route(dtype: torch.dtype, ci: int, kw: int) -> str:
     """The kernel that a CUDA call takes, from its dtype and shapes alone."""
-    if dtype == torch.bfloat16 and kw <= MAX_KW:
+    if kw > MAX_KW:
+        return CUDA_CORE
+    if dtype == torch.bfloat16:
         return TENSOR_CORE if ci >= 16 else NARROW
-    return CUDA_CORE
+    return TENSOR_CORE_F32 if ci >= 16 else CUDA_CORE
 
 
 def batch_splits(users: int, batch: int, ci: int, co: int, kh: int, sm_count: int,

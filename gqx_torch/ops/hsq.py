@@ -89,15 +89,38 @@ def check_signature(what: str, codes, u, codebook, dim):
 
 # -- encode -----------------------------------------------------------------
 
+def _dot_in_order(r: torch.Tensor, c: torch.Tensor, passes: int) -> torch.Tensor:
+    """Each row's u for its codeword (rows r, float32, and their codewords c,
+    both (n, dim)), as the kernel computes it: the products of bf16(x) with
+    the codeword (exact in float32: the codebook is bf16-exact) added in
+    element order from +0; for passes=2 those of bf16(x - bf16(x)) likewise,
+    the two sums then added.  A matmul's sum rounds in an order of the
+    library's choosing, and the norm quantizer's levels follow each
+    segment's min and max of u, so u must not depend on that order."""
+    xh = bf16_round(r)
+    parts = [xh] if passes == 1 else [xh, bf16_round(r - xh)]
+    sums = []
+    for xp in parts:
+        acc = torch.zeros(r.shape[0], dtype=torch.float32, device=r.device)
+        for d in range(r.shape[1]):
+            acc = acc + xp[:, d] * c[:, d]
+        sums.append(acc)
+    return sums[0] if passes == 1 else sums[0] + sums[1]
+
+
 def hsq_encode_flat_plain(flat: torch.Tensor, codebook: torch.Tensor, dim: int,
                           passes: int = 2, code_dtype=torch.uint8):
-    """The plain version: (U, size) or (size,) -> (u, codes) of (U, M)/(M,)."""
+    """The plain version: (U, size) or (size,) -> (u, codes) of (U, M)/(M,).
+    The code is chosen from the matmul's products (``pos >= -neg``, first
+    index); u is then the chosen codeword's products summed in element
+    order (``_dot_in_order``)."""
     batched = flat.dim() == 2
     x = flat if batched else flat[None]
     users, size = x.shape
     m = size // dim
     rows = x.reshape(users * m, dim).to(torch.float32)
-    cb_t = codebook.to(device=rows.device, dtype=torch.float32).t()
+    cb = codebook.to(device=rows.device, dtype=torch.float32)
+    cb_t = cb.t()
     k = codebook.shape[0]
     iota = torch.arange(k, device=rows.device)
     u = torch.empty(users * m, dtype=torch.float32, device=rows.device)
@@ -111,7 +134,7 @@ def hsq_encode_flat_plain(flat: torch.Tensor, codebook: torch.Tensor, dim: int,
         pos, neg = p.amax(1), p.amin(1)
         uj = torch.where(pos >= -neg, pos, neg)
         idx = torch.where(p == uj[:, None], iota, k).amin(1)
-        u[s:s + _CHUNK] = uj
+        u[s:s + _CHUNK] = _dot_in_order(r, cb[idx], passes)
         codes[s:s + _CHUNK] = idx.to(code_dtype)
     u, codes = u.reshape(users, m), codes.reshape(users, m)
     return (u, codes) if batched else (u[0], codes[0])

@@ -114,7 +114,7 @@ def build(tmp: str, baseline=None):
         with open(src, "w") as f:
             f.write(text)
         jobs[name] = (lib, entry, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     entries = {}
     for name, (lib, entry, proc) in jobs.items():

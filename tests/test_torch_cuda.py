@@ -95,6 +95,8 @@ def test_cuda_kernels_match_plain(cuda_device, dim, k, code_dtype, dtype, passes
     assert int((c != cp).sum()) <= 2
     same = _encode_near_ties_only(x, cb, passes, c, cp).reshape(users, m)
     torch.testing.assert_close(u[same], up[same], rtol=1e-6, atol=0)
+    # u is summed in the plain version's order: the same bits
+    assert torch.equal(u[same], up[same])
     d = hsq_ops.hsq_decode_mean(c, u, cb, dim, passes)
     dp = hsq_ops.hsq_decode_mean_plain(c, u, cb, dim, passes)
     tol = 1e-6 * hsq_ops.hsq_decode_mean_plain(c, u.abs(), cb.abs(), dim, 2)
@@ -382,7 +384,8 @@ def test_cuda_tensor_never_reaches_a_plain_version(cuda_device, monkeypatch):
     u, c = hsq_rows.hsq_encode(rows, cb, torch.uint8)
     hsq_rows.hsq_decode(c, u, cb)
     by_route = dict(dw_ops.launches_by_route)
-    for ci, dtype in ((3, torch.bfloat16), (16, torch.bfloat16), (3, torch.float32)):
+    for ci, dtype in ((3, torch.bfloat16), (16, torch.bfloat16), (3, torch.float32),
+                      (16, torch.float32)):
         x = torch.randn(4, ci, 8, 8, device=cuda_device, dtype=dtype)
         dw_ops.per_user_dw(x, torch.randn(4, 5, 8, 8, device=cuda_device, dtype=dtype),
                            2, 3, 3, 1, 1)
@@ -409,17 +412,32 @@ def _dw_tolerance(x, dy, users, kh, kw, ph, pw):
 
 
 TC, NW, CC = dw_ops.TENSOR_CORE, dw_ops.NARROW, dw_ops.CUDA_CORE
+TF = dw_ops.TENSOR_CORE_F32
+F32 = torch.float32
 
 
 @pytest.mark.parametrize("users,batch,ci,co,h,w,kh,kw,ph,pw,dtype,route", [
-    (2, 4, 16, 32, 8, 8, 3, 3, 1, 1, torch.float32, CC),
+    (2, 4, 16, 32, 8, 8, 3, 3, 1, 1, torch.float32, TF),
     (2, 4, 3, 64, 32, 32, 3, 3, 1, 1, torch.bfloat16, NW),      # the stem: (ci, tap) columns
     (3, 5, 70, 65, 4, 4, 3, 3, 1, 1, torch.bfloat16, TC),       # ragged channel tiles, 4x4 plane
-    (2, 3, 17, 9, 5, 7, 2, 2, 0, 1, torch.float32, CC),         # even window, uneven pads
+    (2, 3, 17, 9, 5, 7, 2, 2, 0, 1, torch.float32, TF),         # even window, uneven pads
     (1, 2, 5, 6, 6, 9, 5, 5, 3, 1, torch.bfloat16, NW),         # pads that are not (k-1)/2
     (2, 2, 8, 8, 3, 70, 1, 7, 0, 3, torch.float32, CC),         # rows wider than one column chunk
     (8, 32, 64, 64, 1, 1, 3, 2, 2, 0, torch.bfloat16, TC),      # a 1x1 plane: only one tap is not zero
-    (1, 64, 20, 20, 2, 2, 4, 6, 1, 2, torch.float32, CC),       # the batch split in many ranges
+    (1, 64, 20, 20, 2, 2, 4, 6, 1, 2, torch.float32, TF),       # the batch split in many ranges
+    # float32 on the CUDA cores: fewer than 16 input channels
+    (2, 4, 3, 64, 32, 32, 3, 3, 1, 1, F32, CC),                 # the stem
+    (2, 3, 15, 20, 6, 6, 3, 3, 1, 1, F32, CC),                  # the widest input it takes
+    # float32 on the tensor cores (exact bf16 pieces) where it is weakest
+    (3, 5, 70, 65, 4, 4, 3, 3, 1, 1, F32, TF),                  # ragged channel tiles, 4x4 plane
+    (8, 4, 64, 64, 4, 4, 3, 3, 1, 1, F32, TF),                  # W = 4: 13 rows a chunk
+    (2, 3, 24, 70, 7, 7, 3, 3, 1, 1, F32, TF),                  # W = 7: 4-byte loads; co 70 ragged
+    (2, 2, 24, 70, 7, 9, 5, 5, 3, 1, F32, TF),                  # kw = 5 (two groups of taps), pads (3, 1)
+    (8, 32, 64, 64, 1, 1, 3, 2, 2, 0, F32, TF),                 # a 1x1 plane: only one tap is not zero
+    (1, 64, 32, 16, 8, 8, 3, 3, 1, 1, F32, TF),                 # the batch split in 16 ranges
+    (2, 2, 16, 8, 3, 200, 1, 7, 0, 3, F32, TF),                 # column chunks: a halo of data
+    (2, 3, 20, 20, 5, 6, 2, 1, 1, 0, F32, TF),                  # kw = 1
+    (2, 3, 16, 16, 6, 10, 3, 3, 1, 1, F32, TF),                 # W = 10: 8-byte loads
     # the tensor-core route where it is weakest
     (8, 4, 64, 64, 4, 4, 3, 3, 1, 1, torch.bfloat16, TC),       # W = 4: 4-pixel loads, 2 of 6 columns halo
     (2, 3, 24, 70, 7, 7, 3, 3, 1, 1, torch.bfloat16, TC),       # W = 7: 1-pixel loads; ci 24, co 70 ragged
@@ -442,7 +460,32 @@ def test_cuda_per_user_dw_matches_plain(cuda_device, users, batch, ci, co, h, w,
     rng = np.random.default_rng(ci * co + h)
     x = torch.from_numpy(rng.standard_normal((users * batch, ci, h, w)).astype(np.float32))
     dy = torch.from_numpy(rng.standard_normal((users * batch, co, h, w)).astype(np.float32))
-    x, dy = x.to(cuda_device, dtype), dy.to(cuda_device, dtype)
+    _check_dw(x.to(cuda_device, dtype), dy.to(cuda_device, dtype), users, kh, kw, ph, pw, route)
+
+
+def test_cuda_per_user_dw_f32_mixed_magnitudes(cuda_device):
+    """float32 on the tensor cores with x of mixed sign over 2^-20 .. 2^20
+    (random significands, so no product ties) and every user's images in
+    pairs whose dy nearly cancel: the pieces of small and large values, and
+    sums far below their summed magnitudes."""
+    users, batch, ci, co, h, w = 2, 6, 32, 24, 8, 8
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal((users * batch, ci, h, w)) * 2.0 ** rng.uniform(-20, 20,
+                                                                           (users * batch, ci, h, w))
+    dy = rng.standard_normal((users * batch, co, h, w))
+    dy[1::2] = -dy[0::2] * (1.0 + 2.0 ** -6 * rng.standard_normal((users * batch // 2, co, h, w)))
+    x[1::2] = x[0::2]
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+    dy = torch.from_numpy(dy.astype(np.float32)).to(cuda_device)
+    _check_dw(x, dy, users, 3, 3, 1, 1, TF)
+
+
+def _check_dw(x, dy, users, kh, kw, ph, pw, route):
+    """The kernel against its plain version (within _dw_tolerance), the
+    library's weight gradient (1e-4) and itself (the same bits twice), on
+    the route it must take."""
+    n, ci, h, w = x.shape
+    batch, co, dtype = n // users, dy.shape[1], x.dtype
     assert dw_ops.route(dtype, ci, kw) == route
     before, by_route = dw_ops.launches, dict(dw_ops.launches_by_route)
     got = dw_ops.per_user_dw(x, dy, users, kh, kw, ph, pw)
@@ -452,12 +495,15 @@ def test_cuda_per_user_dw_matches_plain(cuda_device, users, batch, ci, co, h, w,
     assert dw_ops.launches == before + 1                     # plain launches nothing
     assert got.shape == (users, co, ci, kh, kw) and got.dtype == torch.float32
     assert bool(((got - want).abs() <= _dw_tolerance(x, dy, users, kh, kw, ph, pw)).all())
-    # the library's weight gradient of the same convolution, user by user
+    # the library's weight gradient of the same convolution, user by user,
+    # in float32 (cuDNN's TF32 would round the operands to 10 bits)
     xp = torch.nn.functional.pad(x.float(), (pw, kw - 1 - pw, ph, kh - 1 - ph))
-    for u in range(users):
-        sl = slice(u * batch, (u + 1) * batch)
-        lib = torch.nn.grad.conv2d_weight(xp[sl], (co, ci, kh, kw), dy[sl].float())
-        torch.testing.assert_close(got[u], lib, rtol=1e-4, atol=1e-4 * float(lib.abs().max()))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for u in range(users):
+            sl = slice(u * batch, (u + 1) * batch)
+            lib = torch.nn.grad.conv2d_weight(xp[sl], (co, ci, kh, kw), dy[sl].float())
+            torch.testing.assert_close(got[u], lib, rtol=1e-4,
+                                       atol=1e-4 * float(lib.abs().max()))
     # the split reduction is combined in a fixed order: the same bits again
     assert torch.equal(got, dw_ops.per_user_dw(x, dy, users, kh, kw, ph, pw))
     assert dw_ops.launches_by_route[route] == by_route[route] + 2
@@ -489,8 +535,9 @@ def test_cuda_per_user_dw_refuses_bad_input(cuda_device, monkeypatch):
 
 
 def test_cuda_folded_step_takes_the_kernel_and_matches_the_loop(cuda_device):
-    """A folded ResNet-18 step on the card launches the CUDA-core kernel once
-    per stride-1 3x3 conv (14) and none in the loop; with float32 compute the
+    """A folded float32 ResNet-18 step on the card launches the per-user
+    weight gradient once per stride-1 3x3 conv (14: the stem's on the CUDA
+    cores, 13 on the float32 tensor-core route) and none in the loop; the
     two routes' gradients agree within 1e-3 of each leaf's norm (the card's
     convolution algorithms differ between batch 8 and batch 4)."""
     from gqx_torch.config import GQConfig
@@ -510,10 +557,11 @@ def test_cuda_folded_step_takes_the_kernel_and_matches_the_loop(cuda_device):
     state, plan = create_train_state(cfg, model, device="cuda")
     x = torch.randn(2, 4, 3, 32, 32, generator=gen).to(cuda_device)
     y = torch.randint(0, 10, (2, 4), generator=gen).to(cuda_device)
-    before, cuda_core = dw_ops.launches, dw_ops.launches_by_route[dw_ops.CUDA_CORE]
+    before, by_route = dw_ops.launches, dict(dw_ops.launches_by_route)
     _, folded = folded_user_grads(model, plan, plan.names, x, y)
     assert dw_ops.launches == before + 14
-    assert dw_ops.launches_by_route[dw_ops.CUDA_CORE] == cuda_core + 14     # float32: no tensor cores
+    # float32: the stem on the CUDA cores, the 13 others on exact bf16 pieces
+    assert dw_ops.launches_by_route == {**by_route, CC: by_route[CC] + 1, TF: by_route[TF] + 13}
     clear_batch_stats(model)
     _, looped = user_grads(model, plan.names, x, y)
     assert dw_ops.launches == before + 14

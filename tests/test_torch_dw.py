@@ -143,9 +143,12 @@ def test_batch_splits_fill_the_card_and_leave_no_range_empty(shape, want):
     (torch.bfloat16, 3, 3, "narrow"),          # the stem
     (torch.bfloat16, 15, 3, "narrow"),         # the widest input it takes
     (torch.bfloat16, 1, 7, "narrow"),          # the narrowest input and widest window
-    (torch.float32, 64, 3, "cuda_core"),       # float32 keeps its exact FMAs
-    (torch.float32, 3, 3, "cuda_core"),
-    (torch.bfloat16, 64, 8, "cuda_core"),      # beyond MAX_KW: the CUDA-core wrapper raises
+    (torch.float32, 64, 3, "tensor_core_f32"),   # float32 on exact bf16 pieces
+    (torch.float32, 16, 7, "tensor_core_f32"),   # the narrowest input and widest window it takes
+    (torch.float32, 3, 3, "cuda_core"),          # the float32 stem keeps its FMAs
+    (torch.float32, 15, 3, "cuda_core"),         # the widest input they take
+    (torch.float32, 64, 8, "cuda_core"),         # beyond MAX_KW: the CUDA-core wrapper raises
+    (torch.bfloat16, 64, 8, "cuda_core"),
 ])
 def test_route_is_a_function_of_dtype_and_shapes(dtype, ci, kw, want):
     assert dw_ops.route(dtype, ci, kw) == want
@@ -161,6 +164,129 @@ def test_tensor_core_batch_splits(shape, kw, want):
     assert splits == want
     per = -(-shape[1] // splits)
     assert 1 <= splits <= shape[1] and (splits - 1) * per < shape[1]
+
+
+@pytest.mark.parametrize("shape,kw,want", [
+    ((8, 32, 64, 64, 3, 132), 3, 11), ((8, 32, 128, 128, 3, 132), 3, 8),
+    ((8, 32, 256, 256, 3, 132), 3, 2), ((8, 32, 512, 512, 3, 132), 3, 1),
+    ((1, 64, 32, 16, 3, 132), 3, 16), ((2, 2, 24, 70, 5, 132), 5, 2),
+    ((3, 5, 70, 65, 3, 132), 3, 5)])
+def test_tensor_core_f32_batch_splits(shape, kw, want):
+    """The float32 tensor-core route's blocks: as the bf16 route's, one per
+    (user, tap row, group of up to three taps, 64 x 64 channel tile, range),
+    but two per multiprocessor."""
+    splits = dw_ops.batch_splits(*shape, which=dw_ops.TENSOR_CORE_F32, kw=kw)
+    assert splits == want
+    per = -(-shape[1] // splits)
+    assert 1 <= splits <= shape[1] and (splits - 1) * per < shape[1]
+
+
+def _dw_f64(x, dy, users, kh, kw, ph, pw):
+    """The weight gradient summed in float64."""
+    _, ci, h, w = x.shape
+    co = dy.shape[1]
+    xp = torch.nn.functional.pad(x.double(), (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    xu = xp.reshape(users, -1, ci, h + kh - 1, w + kw - 1)
+    dyu = dy.double().reshape(users, -1, co, h, w)
+    taps = [torch.einsum("ubihw,ubohw->uoi", xu[..., i:i + h, j:j + w], dyu)
+            for i in range(kh) for j in range(kw)]
+    return torch.stack(taps, dim=-1).reshape(users, co, ci, kh, kw)
+
+
+@pytest.mark.parametrize("ci,co,hw", [(3, 64, 32), (64, 64, 32), (128, 128, 16),
+                                      (256, 256, 8), (512, 512, 4)])
+def test_f32_pieces_arithmetic_fits_the_tolerance(ci, co, hw):
+    """Which cross products the float32 tensor-core route keeps, at
+    ResNet-18's five 3x3 geometries (2 users x 2 images): x and dy split into
+    exact bf16 pieces (split_bf16_3), the six kept cross products (mm, hl,
+    lh, hm, mh, hh) each summed in float32 and added smallest first, within
+    the card tests' tolerance (sqrt(n) * 2^-23 of the summed magnitudes) of
+    the float64 sum; the dropped ml, lm and ll together below 2^-23 of the
+    summed magnitudes.  The sums here round to nearest: how the tensor cores
+    accumulate is the next test's."""
+    from gqx_torch.ops.hsq_prep import split_bf16_3
+
+    users, batch = 2, 2
+    rng = np.random.default_rng(ci + hw)
+    x = torch.from_numpy(rng.standard_normal((users * batch, ci, hw, hw)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((users * batch, co, hw, hw)).astype(np.float32))
+    args = (users, 3, 3, 1, 1)
+    xs, ds = split_bf16_3(x), split_bf16_3(dy)
+    for pieces in (xs, ds):
+        assert all(torch.equal(p, p.bfloat16().float()) for p in pieces)     # bf16 values
+    assert torch.equal(xs[0] + xs[1] + xs[2], x) and torch.equal(ds[0] + ds[1] + ds[2], dy)
+    got = torch.zeros(users, co, ci, 3, 3)
+    for a, b in ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0)):            # (dy, x) pieces
+        got += dw_ops.per_user_dw_plain(xs[b], ds[a], *args)
+    exact = _dw_f64(x, dy, *args)
+    mag = _dw_f64(x.abs(), dy.abs(), *args)
+    n = batch * hw * hw
+    assert bool(((got.double() - exact).abs() <= n ** 0.5 * 2.0 ** -23 * mag).all())
+    dropped = sum(_dw_f64(xs[b], ds[a], *args) for a, b in ((1, 2), (2, 1), (2, 2)))
+    assert bool((dropped.abs() <= 2.0 ** -23 * mag).all())
+
+
+def _round_toward_zero(t):
+    """float64 -> float32, rounded toward zero."""
+    r = t.float()
+    return torch.where(r.double().abs() > t.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _columns(x, users):
+    """x (U*B, Ci, H, W) -> (U, Ci*9, B*H*W) float64: per user, the 3x3
+    window's shifted inputs (pads (1, 1)) as the columns of a GEMM whose depth
+    is the pixels."""
+    n, ci, h, w = x.shape
+    xp = torch.nn.functional.pad(x.double(), (1, 1, 1, 1))
+    taps = torch.stack([xp[:, :, i:i + h, j:j + w] for i in range(3) for j in range(3)], 2)
+    return taps.reshape(users, n // users, ci * 9, h * w).transpose(1, 2).reshape(users, ci * 9, -1)
+
+
+def _tensor_core_sum(xs, ds, users, two_sets):
+    """The float32 tensor-core route's accumulation, modelled: per step of 16
+    pixels, each kept cross product's 16 exact products (mm, hl, lh, hm, mh,
+    hh in that order) added to its accumulator in one sum rounded toward
+    zero, as the tensor cores round; hh into one set and the five smaller
+    ones into a second, the two added at the end (``two_sets``), or all six
+    into one set."""
+    cols = [_columns(p, users) for p in xs]
+    rows = [d.double().reshape(users, -1, d.shape[1], d.shape[2] * d.shape[3]).transpose(1, 2)
+            .reshape(users, d.shape[1], -1) for d in ds]
+    acc = torch.zeros(users, rows[0].shape[1], cols[0].shape[1])
+    rest = torch.zeros_like(acc)
+    for p in range(0, cols[0].shape[-1], 16):
+        for a, b in ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0)):          # (dy, x) pieces
+            step = torch.einsum("uop,uip->uoi", rows[a][..., p:p + 16], cols[b][..., p:p + 16])
+            if two_sets and (a, b) != (0, 0):
+                rest = _round_toward_zero(rest.double() + step)
+            else:
+                acc = _round_toward_zero(acc.double() + step)
+    return acc + rest
+
+
+@pytest.mark.parametrize("ci,co,hw", [(64, 64, 32), (128, 128, 16), (256, 256, 8),
+                                      (512, 512, 4)])
+def test_f32_two_accumulator_sets_fit_the_tolerance_under_truncation(ci, co, hw):
+    """The float32 tensor-core route's two accumulator sets, with the tensor
+    cores' truncating additions modelled (``_tensor_core_sum``), at the four
+    geometries of ResNet-18 that take the route (2 users x 2 images): within
+    the card tests' tolerance of the float64 sum, and on average at most a
+    quarter of the error of one set, whose six roundings a step all fall at
+    the scale of the whole sum."""
+    from gqx_torch.ops.hsq_prep import split_bf16_3
+
+    users, batch = 2, 2
+    rng = np.random.default_rng(ci + hw)
+    x = torch.from_numpy(rng.standard_normal((users * batch, ci, hw, hw)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((users * batch, co, hw, hw)).astype(np.float32))
+    xs, ds = split_bf16_3(x), split_bf16_3(dy)
+    exact = _dw_f64(x, dy, users, 3, 3, 1, 1).reshape(users, co, ci * 9)
+    mag = _dw_f64(x.abs(), dy.abs(), users, 3, 3, 1, 1).reshape(users, co, ci * 9)
+    rel = {two: (_tensor_core_sum(xs, ds, users, two).double() - exact).abs() / mag
+           for two in (True, False)}
+    n = batch * hw * hw
+    assert bool((rel[True] <= n ** 0.5 * 2.0 ** -23).all())
+    assert float(rel[True].mean()) <= float(rel[False].mean()) / 4
 
 
 @pytest.mark.parametrize("shape,want", [
