@@ -12,10 +12,12 @@
    encode (on the tensor cores; at P1's, P2's and P3's shapes, timed by
    device time with CUDA events beside it), the fused decode-mean, the
    uniforms and the per-user decode at dim 16 / K 256, the row-major
-   encode (both routes: dim <= 32 on the tensor cores at P4's dim 8 / K
-   1024, bf16 and float32 rows; dim 256 on the CUDA cores at P6's shape)
-   and decode, plus ragged dims and a codebook larger than shared memory,
-   on both input types; the per-user conv
+   encode (both routes, bf16 and float32 rows: dim <= 32 on the tensor
+   cores at P4's dim 8 / K 1024; dims above 32 on the wide tensor-core
+   route at P6's shape, dim 256 / K 256, with hsq_rows_encode.cu, the
+   CUDA-core kernel it replaced, timed beside it) and decode, plus ragged
+   dims (up to 576) and codebooks larger than shared memory, on both input
+   types; the per-user conv
    weight gradient at the five 3x3 geometries of ResNet-50 (8 users x 32,
    bf16: the stem on the narrow kernel, the four others on the
    tensor-core kernel), at the five of ResNet-18 and ResNet-50 in float32
@@ -25,7 +27,7 @@
    exists, the PyTorch call computing the same function (for the conv
    weight gradient, one grouped call for all users, with the per-user
    calls beside it).
-4. Runs six training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute
+4. Runs seven training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute
    but for P7, hsq_passes=1, random weights and data from --seed), each for
    one warm-up step and --steps steps with the launch counters set to 0
    just before and read just after:
@@ -38,14 +40,17 @@
      P5  P1 with folded_users=False (the per-user loop), one step;
      P7  P1 with float32 compute, gqx's default (float32 units; the conv
          weight gradient on the float32 routes);
+     P8  P1 with HSQ c_dim 256 / k_bit 8 and passthrough_threshold 2048
+         (one row-major unit of 91,904 rows of 256, K 256: the wide route;
+         the stem passed through uncompressed);
    and P6, HSQ c_dim 256 / k_bit 8 on the gradient unit of P1's plan through
    the compressor's entry points (compress_batch, decode_mean; the encode
-   on the CUDA cores), its launches counted the same way.
+   on the wide route), its launches counted the same way.
    The counters must equal what the code implies (the per-user conv weight
    gradient per folded step: in bf16 13 tensor-core and 1 narrow launches,
    in float32 13 float32 tensor-core and 1 CUDA-core launches; the
    row-major encode by route).  The aggregate of one more step of each of
-   P1-P4 and P7 (and P2's new
+   P1-P4, P7 and P8 (and P2's new
    error-feedback state) is recomputed on the CPU through the plain
    versions from the same gradients, state and seed, and compared; so is
    P6's decode-mean.
@@ -149,14 +154,19 @@ PATHS = {
     # gqx's default compute dtype: float32 units, the float32 K7 routes
     "P7": (dict(compute_dtype="float32"),
            dict(hsq_encode=1, philox_uniform=1, hsq_decode_mean=1)),
+    # the wide row-major route in training: at c_dim 256 the stem's 1,728
+    # weights would get subvectors of 576, which have no codebook, so the
+    # stem is passed through (it still takes its per-user gradient from the
+    # narrow K7 kernel, 13 + 1 a step); one HSQ unit of 91,904 rows of 256
+    "P8": (dict(c_dim=256, k_bit=8, passthrough_threshold=2048),
+           dict(hsq_rows_encode_wide=1, philox_uniform=1, hsq_rows_decode=1)),
 }
-# P6, the path of the CUDA-core row-major encode: dim 256 is outside the flat
-# layout and above the tensor-core encode's 32.  No ResNet-50 training plan
-# reaches it (with c_dim 256 its ragged leaves get subvectors of 576, which
-# have no codebook), so it is the compressor on the gradient unit of P1's
-# plan; launches per call of compress_batch and decode_mean
+# P6, the wide row-major encode (dim 256 is outside the flat layout and above
+# the tensor-core encode's 32) through the compressor's entry points on the
+# gradient unit of P1's plan; launches per call of compress_batch and
+# decode_mean
 WIDE_ROWS = (dict(c_dim=256, k_bit=8),
-             dict(hsq_rows_encode=1, philox_uniform=1, hsq_rows_decode=1))
+             dict(hsq_rows_encode_wide=1, philox_uniform=1, hsq_rows_decode=1))
 EF_EPOCH = 1.0   # the error-feedback scale is config.ef_scale(EF_EPOCH)
 
 # the stride-1 same-size 3x3 convs of CIFAR ResNet-50, whose per-user weight
@@ -483,10 +493,10 @@ def check_rows_encode(rows, cb, code_dtype, name, route):
 def rows_timing(label, rows, cb, code_dtype):
     """K6 encode's device time (torch.profiler) and events at one shape,
     against its bound and its plain version; returns the shape's record.
-    The bound counts the operations of the route: on the tensor cores the
-    exact bf16 pieces' passes (three for bf16 rows, six for float32) at the
-    bf16 peak, on the CUDA cores one fp32 multiply-add per product; the
-    latter is kept beside for every route (``fp32_fma_bound_ms``)."""
+    The bound counts the operations of the route: on the tensor cores (both
+    routes) the exact bf16 pieces' passes (three for bf16 rows, six for
+    float32) at the bf16 peak; one fp32 multiply-add per product, the CUDA
+    cores' bound, is kept beside (``fp32_fma_bound_ms``)."""
     import torch
 
     from gqx_torch.ops import hsq_rows
@@ -497,11 +507,9 @@ def rows_timing(label, rows, cb, code_dtype):
     macs = float(n) * k * dim
     code_bytes = torch.empty(0, dtype=code_dtype).element_size()
     moved = rows.numel() * rows.element_size() + n * (4 + code_bytes) + k * dim * 4
-    fma_ms, fma_by = bound(moved, 2.0 * macs, FP32_FLOPS)
-    b_ms, b_by = fma_ms, fma_by
-    if which == hsq_rows.TENSOR_CORE:
-        passes = 3 if rows.dtype == torch.bfloat16 else 6
-        b_ms, b_by = bound(moved, 2.0 * passes * macs, BF16_FLOPS)
+    fma_ms, _ = bound(moved, 2.0 * macs, FP32_FLOPS)
+    passes = 3 if rows.dtype == torch.bfloat16 else 6
+    b_ms, b_by = bound(moved, 2.0 * passes * macs, BF16_FLOPS)
     kernel = lambda: hsq_rows.hsq_encode(rows, cb, code_dtype)
     rec = dict(shape=label, route=which, rows=n, ms=device_ms(kernel, 10),
                events_ms=cuda_ms(kernel, 10),
@@ -516,8 +524,8 @@ def rows_timing(label, rows, cb, code_dtype):
 
 def wide_rows_compressor(seed: int):
     """P6's compressor: HSQ c_dim 256 / k_bit 8 for the gradient unit of
-    P1's plan (23,527,424 elements: 91,904 rows of 256, K = 256); returns
-    (unit, compressor)."""
+    P1's plan (23,527,424 elements: 91,904 rows of 256, K = 256, P8's
+    shape); returns (unit, compressor)."""
     from gqx_torch.compress import make_compressor
 
     unit = hsq_unit(canonical_config(), seed)
@@ -563,16 +571,22 @@ def rows_kernel_phase(seed: int):
     """The row-major encode and decode against their plain versions: the
     encode's tensor-core route at the shape of P4's unit (8 users x 2.94M
     rows, dim 8, K=1024) on bf16 rows (P4's unit) and float32 rows (the
-    unit with error feedback), its CUDA-core route at P6's (8 users x 91,904
-    rows of 256, K=256), both input types, then ragged dims (5, 24, 36),
-    dim 32, and codebooks larger than shared memory (dim 16 x K 4096 = 256
-    KB; dim 32 x K 1024 in pieces)."""
+    unit with error feedback), its wide route at P6's and P8's (8 users x
+    91,904 rows of 256, K=256), both input types, with hsq_rows_encode.cu,
+    the CUDA-core kernel it replaced, checked (u bit-equal where the codes
+    agree) and timed beside it; then ragged dims (5, 24, 36, 576), dims 32
+    and 512, and codebooks larger than shared memory or a codeword tile
+    (dim 16 x K 4096 = 256 KB; dim 32 x K 1024 in pieces; dim 576 x K
+    1024)."""
+    import os
+
     import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from gqx_torch.codebooks import get_codebook
+    from gqx_torch.codebooks import DEFAULT_DIR, codebook_filename, get_codebook
     from gqx_torch.ops import hsq_rows
+    from gqx_torch.scripts.rows_wide_probe import cuda_core_encode
 
     cfg = canonical_config(**PATHS["P4"][0])
     unit = hsq_unit(cfg, seed)
@@ -635,35 +649,55 @@ def rows_kernel_phase(seed: int):
         f"{e['library_ms']:.4f} ms (events {e['library_events_ms']:.4f} ms)")
     del codes_col, w_col, u_k, c_k, u_q
 
-    # the CUDA-core route at P6's shape: rows of 256, bf16 (as P6 gets them)
-    # and float32
+    # the wide route at P6's and P8's shape: rows of 256, bf16 (as P6 and P8
+    # get them) and float32, with the CUDA-core kernel it replaced beside it
     unit6, comp6 = wide_rows_compressor(seed)
     cb6 = comp6.codebook(dev)
     rows32 = unit_input(unit6, users, seed + 4).reshape(users, comp6.M, comp6.dim)
     shapes, err = [], 0.0
     for label, rows in (("P6 bf16", rows32.to(torch.bfloat16)), ("P6 float32", rows32)):
-        _, _, e = check_rows_encode(rows, cb6, comp6.code_dtype,
-                                    f"hsq_rows_encode {label} dim 256 K 256", hsq_rows.CUDA_CORE)
+        u_w, c_w, e = check_rows_encode(rows, cb6, comp6.code_dtype,
+                                        f"hsq_rows_encode {label} dim 256 K 256",
+                                        hsq_rows.TENSOR_CORE_WIDE)
         err = max(err, e)
-        shapes.append(rows_timing(label, rows, cb6, comp6.code_dtype))
-        del rows
+        rec = rows_timing(label, rows, cb6, comp6.code_dtype)
+        # the parent kernel: u bit-equal wherever the codes agree
+        u_c, c_c = cuda_core_encode(rows, cb6, comp6.code_dtype)
+        agree = c_c == c_w
+        if not torch.equal(u_c[agree].view(torch.int32), u_w[agree].view(torch.int32)):
+            raise AssertionError(f"hsq_rows_encode {label}: u differs from hsq_rows_encode.cu's "
+                                 "where the codes agree")
+        # timed by CUDA events around its launches: torch.profiler's windows
+        # came back without its device time (a 20 ms kernel; the events'
+        # host share is negligible)
+        rec["cuda_core_events_ms"] = cuda_ms(
+            lambda: cuda_core_encode(rows, cb6, comp6.code_dtype), 3)
+        log(f"[hsq_rows_encode {label}] hsq_rows_encode.cu (CUDA cores, the route replaced): "
+            f"{rec['cuda_core_events_ms']:.4f} ms by events; codes agree on {int(agree.sum())} of "
+            f"{agree.numel()}, u bit-equal there")
+        shapes.append(rec)
+        del rows, u_w, c_w, u_c, c_c, agree
     del rows32
     p6 = shapes[0]
-    entries["hsq_rows_encode"] = dict(
-        name="hsq_rows_encode", route="cuda", source="gqx_torch/csrc/hsq_rows_encode.cu",
-        engine="CUDA cores: fp32 FMA, a row per thread in shared memory",
+    entries["hsq_rows_encode_wide"] = dict(
+        name="hsq_rows_encode_wide", route="cuda", source="gqx_torch/csrc/hsq_rows_encode_wide.cu",
+        engine="tensor cores: wgmma m64n128k16 bf16 -> float32 on exact bf16 pieces, two "
+               "accumulator sets, argmax epilogue; codebook chunks by bulk copy",
         replaces="gqx/ops/pallas_hsq.py:53", max_abs_err=err, ms=p6["ms"],
         events_ms=p6["events_ms"], plain_ms=p6["plain_ms"], bound_ms=p6["bound_ms"],
         bound_by=p6["bound_by"], fp32_fma_bound_ms=p6["fp32_fma_bound_ms"], library_ms=None,
+        cuda_core_events_ms=p6["cuda_core_events_ms"],
         shapes=shapes)
 
-    # ragged dims (5 and 24 zero-padded in the tensor-core fragments, 36 on
-    # the CUDA cores), dim 32, and codebooks in several shared-memory K-tiles;
-    # 7 codewords (no learned codebook has so few) are random unit vectors
+    # ragged dims (5 and 24 zero-padded in the tensor-core fragments, 36 and
+    # 576 in the wide route's chunks), dims 32 and 512, and codebooks in
+    # several shared-memory K-tiles or codeword tiles; codebooks the repo has
+    # no file for (7 codewords, dim 576) are random unit vectors
     rng = np.random.default_rng(seed + 2)
     for d, kk, n in ((5, 7, 200_000), (24, 256, 200_000), (32, 1024, 100_000),
-                     (36, 64, 50_000), (16, 4096, 200_000)):
-        if kk < 32:
+                     (36, 64, 50_000), (16, 4096, 200_000), (512, 256, 50_000),
+                     (576, 1024, 20_000)):
+        if not os.path.exists(os.path.join(DEFAULT_DIR, codebook_filename(d, kk))):
             cb_np = rng.standard_normal((kk, d)).astype(np.float32)
             cb_np /= np.linalg.norm(cb_np, axis=1, keepdims=True)
         else:
@@ -996,7 +1030,7 @@ def counters(reset=False):
         raise AssertionError(f"hsq_rows_encode: {hsq_rows.launches['hsq_rows_encode']} launches, "
                              f"by route {rows_route}")
     return {**hsq_ops.launches, "hsq_rows_decode": hsq_rows.launches["hsq_rows_decode"],
-            "hsq_rows_encode": rows_route[hsq_rows.CUDA_CORE],
+            "hsq_rows_encode_wide": rows_route[hsq_rows.TENSOR_CORE_WIDE],
             "hsq_rows_encode_tc": rows_route[hsq_rows.TENSOR_CORE],
             "philox_uniform": rand_ops.launches,
             "per_user_dw": by_route[dw_ops.CUDA_CORE], "per_user_dw_tc": by_route[dw_ops.TENSOR_CORE],
@@ -1429,7 +1463,7 @@ def main():
     comparison_phase(args.seed, args.steps)
 
     order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
-             "hsq_rows_encode", "hsq_rows_encode_tc", "hsq_rows_decode", "per_user_dw",
+             "hsq_rows_encode_tc", "hsq_rows_encode_wide", "hsq_rows_decode", "per_user_dw",
              "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32")
     print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
     print(card, flush=True)

@@ -1,7 +1,10 @@
-// Row-major HSQ encode on the CUDA cores (sm_90a), the route for dims above
-// 32 (hsq_rows_encode_tc.cu takes dim <= 32 on the tensor cores): per
-// dim-wide row, the inner products with the K codewords in float32, code =
-// argmax |p| (the first index on a tie) and u = p[code].
+// Row-major HSQ encode on the CUDA cores (sm_90a), dims 1-256: per dim-wide
+// row, the inner products with the K codewords in float32, code = argmax |p|
+// (the first index on a tie) and u = p[code].  No route of ops/hsq_rows.py
+// takes it any more: hsq_rows_encode_wide.cu replaced it for dims above 32.
+// It stays as the baseline that chip_smoke.py and the tests call through
+// its C entry (gqx_torch/scripts/rows_wide_probe.py::cuda_core_encode), to
+// time it beside the wide route and hold that route's u to this kernel's.
 //
 // Replaces: gqx/ops/pallas_hsq.py::hsq_encode (_encode_kernel), which takes
 // (tile, dim) x (dim, K) on the TPU's matrix unit at Precision.HIGHEST and

@@ -1,7 +1,7 @@
 // Row-major HSQ encode on Hopper's tensor cores (sm_90a): per dim-wide row
 // (dim <= 32), the inner products with the K codewords of the raw float32
 // codebook, code = argmax |p| (the first index on a tie) and u = p[code].
-// Dims above 32 keep the CUDA-core kernel, hsq_rows_encode.cu.
+// Dims above 32 take hsq_rows_encode_wide.cu.
 //
 // Replaces: gqx/ops/pallas_hsq.py::hsq_encode (_encode_kernel), which takes
 // (tile, dim) x (dim, K) on the TPU's matrix unit at Precision.HIGHEST (six

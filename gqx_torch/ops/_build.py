@@ -31,7 +31,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("hsq_encode", "hsq_decode_mean", "philox_uniform",
-           "hsq_decode", "hsq_rows_encode", "hsq_rows_encode_tc", "hsq_rows_decode", "per_user_dw",
+           "hsq_decode", "hsq_rows_encode", "hsq_rows_encode_tc", "hsq_rows_encode_wide",
+           "hsq_rows_decode", "per_user_dw",
            "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32")
 
 _libs: Dict[str, ctypes.CDLL] = {}

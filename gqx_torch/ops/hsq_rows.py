@@ -11,11 +11,12 @@ rounded, ``code = argmax |p|`` with the first index on a tie and
 Each function has a wrapper and a plain PyTorch version.  The wrapper
 computes the plain version for CPU tensors and launches a CUDA kernel for
 CUDA tensors; there is no fallback from one to the other.  A leading users
-axis is covered by one launch.  The encode takes bf16 or float32 rows and
-has two routes (``route``): dims up to 32 on the tensor cores
-(``csrc/hsq_rows_encode_tc.cu``: exact bf16 pieces of the float32 values,
-``hsq_prep.split_bf16_3``), wider dims on the CUDA cores
-(``csrc/hsq_rows_encode.cu``).  The decode is ``csrc/hsq_rows_decode.cu``.
+axis is covered by one launch.  The encode takes bf16 or float32 rows of any
+dim and any number of codewords, on the tensor cores over exact bf16 pieces
+of the float32 values (``hsq_prep.split_bf16_3``), by one of two routes
+(``route``): dims up to 32 in ``csrc/hsq_rows_encode_tc.cu``, wider dims in
+``csrc/hsq_rows_encode_wide.cu`` (a GEMM with an argmax epilogue).  The
+decode is ``csrc/hsq_rows_decode.cu``.
 """
 
 from __future__ import annotations
@@ -27,17 +28,19 @@ import torch
 from gqx_torch.ops import _build
 from gqx_torch.ops.hsq import check_signature
 
-TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+TENSOR_CORE, TENSOR_CORE_WIDE = "tensor_core", "tensor_core_wide"
 
 #: launches of each CUDA kernel (not of the plain versions); the encode's
 #: by route too, ``launches["hsq_rows_encode"]`` being their sum
 launches = {"hsq_rows_encode": 0, "hsq_rows_decode": 0}
-launches_by_route = {TENSOR_CORE: 0, CUDA_CORE: 0}
+launches_by_route = {TENSOR_CORE: 0, TENSOR_CORE_WIDE: 0}
 
-MAX_DIM = 256                  # the CUDA-core encode keeps a row per thread
 MAX_TC_DIM = 32                # the tensor-core encode pads a row to 8, 16, 24 or 32
 _ROUTES = {TENSOR_CORE: ("hsq_rows_encode_tc", "gqx_hsq_rows_encode_tc"),
-           CUDA_CORE: ("hsq_rows_encode", "gqx_hsq_rows_encode")}
+           TENSOR_CORE_WIDE: ("hsq_rows_encode_wide", "gqx_hsq_rows_encode_wide")}
+# x, x_bf16, codebook, k, dim, rows, u, codes, codes_u8, [pieces,] stream
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 _CHUNK = 1 << 16               # rows per block of the plain encode
 
 
@@ -62,12 +65,12 @@ def hsq_encode_plain(rows: torch.Tensor, codebook: torch.Tensor,
 
 def route(dtype: torch.dtype, dim: int) -> str:
     """The encode kernel a CUDA call with rows of ``dtype`` and ``dim``
-    takes: ``tensor_core`` for dim <= 32, ``cuda_core`` above."""
+    takes: ``tensor_core`` for dim <= 32, ``tensor_core_wide`` above."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"hsq_rows_encode: rows must be bf16 or float32, got {dtype}")
-    if not 1 <= dim <= MAX_DIM:
-        raise NotImplementedError(f"hsq_rows_encode: no CUDA kernel for dim {dim} > {MAX_DIM}")
-    return TENSOR_CORE if dim <= MAX_TC_DIM else CUDA_CORE
+    if dim < 1:
+        raise ValueError(f"hsq_rows_encode: dim must be at least 1, got {dim}")
+    return TENSOR_CORE if dim <= MAX_TC_DIM else TENSOR_CORE_WIDE
 
 
 def _encode_kernel(rows, codebook, code_dtype):
@@ -97,13 +100,21 @@ def _encode_kernel(rows, codebook, code_dtype):
     source, entry = _ROUTES[which]
     lib = _build.load(source)
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+    args = [rows.data_ptr(), int(rows.dtype == torch.bfloat16), codebook.data_ptr(), k, dim,
+            u.numel(), u.data_ptr(), codes.data_ptr(), int(code_dtype == torch.uint8)]
+    argtypes = list(_ARGTYPES)
+    if which == TENSOR_CORE_WIDE:
+        # scratch for the codebook's bf16 pieces, which the C entry splits
+        # once per call
+        lib.gqx_hsq_rows_encode_wide_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.gqx_hsq_rows_encode_wide_scratch_bytes.restype = ctypes.c_int64
+        pieces = torch.empty(lib.gqx_hsq_rows_encode_wide_scratch_bytes(k, dim),
+                             dtype=torch.uint8, device=rows.device)
+        args.append(pieces.data_ptr())
+        argtypes.append(ctypes.c_void_p)
+    fn.argtypes = argtypes + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(rows.data_ptr(), int(rows.dtype == torch.bfloat16), codebook.data_ptr(), k, dim,
-             u.numel(), u.data_ptr(), codes.data_ptr(), int(code_dtype == torch.uint8),
-             _build.stream_ptr(rows.device))
+    err = fn(*args, _build.stream_ptr(rows.device))
     _build.check(lib, err, f"hsq_rows_encode ({which})")
     launches["hsq_rows_encode"] += 1
     launches_by_route[which] += 1

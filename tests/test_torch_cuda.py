@@ -16,6 +16,7 @@ from gqx_torch.ops import hsq as hsq_ops
 from gqx_torch.ops import hsq_rows
 from gqx_torch.ops import rand as rand_ops
 from gqx_torch.ops.hsq_prep import bf16_exact_codebook
+from gqx_torch.scripts.rows_wide_probe import cuda_core_encode
 
 pytestmark = pytest.mark.cuda
 
@@ -274,8 +275,8 @@ def _rows_input(rng, cb, users, m):
 @pytest.mark.parametrize("k", [7, 64, 1024, 4096])
 @pytest.mark.parametrize("dim", [4, 5, 8, 16, 24, 32, 36])
 def test_cuda_rows_kernels_match_plain(cuda_device, dim, k, dtype):
-    """Both encode routes (dim <= 32 on the tensor cores, 36 on the CUDA
-    cores), bf16 and float32 rows, K from 7 to 4096 (above shared memory:
+    """Both encode routes (dim <= 32 on ``tensor_core``, 36 on
+    ``tensor_core_wide``), bf16 and float32 rows, K from 7 to 4096 (above shared memory:
     several K-tiles), 3,001 rows per user (not a multiple of 16 or of a
     warp's rows), and the exact ties of ``_rows_codebook``, which must give
     the first index."""
@@ -285,7 +286,7 @@ def test_cuda_rows_kernels_match_plain(cuda_device, dim, k, dtype):
     rows = torch.from_numpy(_rows_input(rng, cb_np, 2, 3001)).to(cuda_device, dtype)
     code_dtype = torch.uint8 if k <= 256 else torch.int32
     which = hsq_rows.route(dtype, dim)
-    assert which == (hsq_rows.TENSOR_CORE if dim <= 32 else hsq_rows.CUDA_CORE)
+    assert which == (hsq_rows.TENSOR_CORE if dim <= 32 else hsq_rows.TENSOR_CORE_WIDE)
     before, by_route = dict(hsq_rows.launches), dict(hsq_rows.launches_by_route)
     u, c = hsq_rows.hsq_encode(rows, cb, code_dtype)
     up, cp = hsq_rows.hsq_encode_plain(rows, cb, code_dtype)
@@ -313,7 +314,7 @@ def test_cuda_rows_encode_routes_move_their_counts(cuda_device, dtype):
     """Each route's count moves by one per launch, the sum with it; two runs
     give the same bits."""
     rng = np.random.default_rng(11)
-    for dim, which in ((8, hsq_rows.TENSOR_CORE), (40, hsq_rows.CUDA_CORE)):
+    for dim, which in ((8, hsq_rows.TENSOR_CORE), (40, hsq_rows.TENSOR_CORE_WIDE)):
         cb = torch.from_numpy(_rows_codebook(rng, 64, dim)[0]).to(cuda_device)
         rows = torch.from_numpy(rng.standard_normal((3, 517, dim)).astype(np.float32)).to(
             cuda_device, dtype)
@@ -323,6 +324,70 @@ def test_cuda_rows_encode_routes_move_their_counts(cuda_device, dtype):
         assert hsq_rows.launches["hsq_rows_encode"] == before + 1
         u2, c2 = hsq_rows.hsq_encode(rows, cb, torch.uint8)
         assert torch.equal(c1, c2) and torch.equal(u1.view(torch.int32), u2.view(torch.int32))
+
+
+def _wide_codebook(rng, k, dim):
+    """``_rows_codebook``'s ties where K allows them; K = 1: one random unit
+    codeword (every row takes code 0)."""
+    if k >= 7:
+        return _rows_codebook(rng, k, dim)
+    cb = rng.standard_normal((k, dim)).astype(np.float32)
+    return cb / np.linalg.norm(cb, axis=1, keepdims=True), [0]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1, 7, 256, 1024, 4096])
+@pytest.mark.parametrize("dim", [33, 40, 64, 255, 256, 257, 512, 576])
+def test_cuda_wide_rows_encode_matches_plain(cuda_device, dim, k, dtype):
+    """The wide route (dims above 32): ragged dims (33, 255, 257: chunks
+    zero-padded, bf16 rows of an odd dim copied value by value), K from 1
+    to 4096 (codebooks of several 128-codeword tiles; int32 codes above
+    256), bf16 and float32 rows scaled by 2^-20..2^20, two users, the exact
+    ties of ``_rows_codebook`` (the first index), rows starting 2 or 4
+    bytes off 16 (the narrower copies).  Codes may differ from the plain
+    version only where the top two |p| are within 1e-5 relative, u within
+    1e-6 of |x|.|c|; u bit-equal to ``hsq_rows_encode.cu``'s wherever the
+    codes agree (dim <= 256, its cap); the same bits twice; one launch a
+    call on ``tensor_core_wide``."""
+    rng = np.random.default_rng(dim * 7 + k)
+    cb_np, tie_codes = _wide_codebook(rng, k, dim)
+    cb = torch.from_numpy(cb_np).to(cuda_device)
+    rows_np = _rows_input(rng, cb_np, 2, 1500) if k >= 7 else \
+        rng.standard_normal((2, 1500, dim)).astype(np.float32)
+    rows_np[:, 0] = 0.0
+    rows_np *= np.exp2(rng.integers(-20, 21, (2, 1500, 1))).astype(np.float32)
+    rows = torch.from_numpy(rows_np).to(cuda_device, dtype)
+    code_dtype = torch.uint8 if k <= 256 else torch.int32
+    assert hsq_rows.route(dtype, dim) == hsq_rows.TENSOR_CORE_WIDE
+    before, by_route = dict(hsq_rows.launches), dict(hsq_rows.launches_by_route)
+    u, c = hsq_rows.hsq_encode(rows, cb, code_dtype)
+    assert hsq_rows.launches_by_route == {
+        **by_route, hsq_rows.TENSOR_CORE_WIDE: by_route[hsq_rows.TENSOR_CORE_WIDE] + 1}
+    assert hsq_rows.launches["hsq_rows_encode"] == before["hsq_rows_encode"] + 1
+    up, cp = hsq_rows.hsq_encode_plain(rows, cb, code_dtype)
+    assert c.dtype == code_dtype and u.shape == c.shape == (2, 1500)
+    n = len(tie_codes)
+    assert torch.equal(c[:, :n].cpu(), torch.tensor([tie_codes] * 2, dtype=code_dtype))
+    assert bool((u[:, 0] == 0).all())
+    if k >= 7:
+        assert bool((u[:, 1] < 0).all())
+    same = _near_tie_only(rows, cb, c, cp).reshape(c.shape)
+    mag = (rows.float().abs() @ cb.abs().t()).gather(2, cp.long()[..., None])[..., 0]
+    assert bool(((u - up).abs()[same] <= 1e-6 * mag[same]).all())
+    u2, c2 = hsq_rows.hsq_encode(rows, cb, code_dtype)
+    assert torch.equal(c, c2) and torch.equal(u.view(torch.int32), u2.view(torch.int32))
+    u1, c1 = hsq_rows.hsq_encode(rows[1], cb, code_dtype)
+    assert torch.equal(u1, u[1]) and torch.equal(c1, c[1])
+    if dim <= 256:
+        uo, co = cuda_core_encode(rows, cb, code_dtype)
+        agree = co == c
+        assert torch.equal(uo[agree].view(torch.int32), u[agree].view(torch.int32))
+    # rows starting 2 (bf16) or 4 (float32) bytes past a 16-byte boundary
+    flat = torch.empty(rows.numel() + 8, dtype=dtype, device=cuda_device)
+    off = flat[1:1 + rows.numel()].view(rows.shape)
+    off.copy_(rows)
+    uf, cf = hsq_rows.hsq_encode(off, cb, code_dtype)
+    assert torch.equal(cf, c) and torch.equal(uf.view(torch.int32), u.view(torch.int32))
 
 
 def test_cuda_decode_and_rows_refuse_bad_input(cuda_device):
@@ -353,9 +418,13 @@ def test_cuda_decode_and_rows_refuse_bad_input(cuda_device):
         hsq_rows.hsq_encode(rows, cb.cpu())
     with pytest.raises(ValueError):
         hsq_rows.hsq_encode(rows, torch.randn(300, 16, device=cuda_device), torch.uint8)
-    with pytest.raises(NotImplementedError):
-        hsq_rows.hsq_encode(torch.randn(4, 300, device=cuda_device),
-                            torch.randn(8, 300, device=cuda_device))
+    # no dim cap: a dim-300 encode matches its plain version
+    wide, cb300 = torch.randn(4, 300, device=cuda_device), torch.randn(8, 300, device=cuda_device)
+    u, c = hsq_rows.hsq_encode(wide, cb300)
+    up, cp = hsq_rows.hsq_encode_plain(wide, cb300)
+    same = _near_tie_only(wide, cb300, c, cp)
+    mag = (wide.abs() @ cb300.abs().t()).gather(1, cp.long()[:, None])[:, 0]
+    assert bool(((u - up).abs()[same] <= 1e-6 * mag[same]).all())
     with pytest.raises(ValueError):    # the tensor-core route loads pairs: 2 bytes off
         flat = torch.randn(2 * 20 * 16 + 1, device=cuda_device, dtype=torch.bfloat16)
         hsq_rows.hsq_encode(flat[1:].view(2, 20, 16), cb)

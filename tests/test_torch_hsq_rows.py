@@ -16,6 +16,7 @@ from gqx.compress import make_compressor as gqx_make
 from gqx.config import GQConfig as GqxConfig
 from gqx_torch.compress import make_compressor
 from gqx_torch.config import GQConfig
+from gqx_torch.codebooks import get_codebook
 from gqx_torch.ops import hsq_rows
 from gqx_torch.ops.hsq_prep import split_bf16_3
 
@@ -33,7 +34,7 @@ def _top2_margin(rows, cb):
 
 
 @pytest.mark.parametrize("k", [64, 1024])
-@pytest.mark.parametrize("dim", [8, 16, 24])
+@pytest.mark.parametrize("dim", [8, 16, 24, 40, 256, 512])
 def test_rows_encode_decode_match_pallas_kernel(rng, dim, k):
     m = 700
     cb = _codebook(rng, k, dim)
@@ -109,11 +110,13 @@ def interpret_rows_kernels(monkeypatch):
                             functools.partial(getattr(gqx_rows, name), interpret=True))
 
 
-@pytest.mark.parametrize("c_dim,k_bit,size", [(8, 10, 8 * 900), (16, 6, 24 * 301)])
+@pytest.mark.parametrize("c_dim,k_bit,size", [(8, 10, 8 * 900), (16, 6, 24 * 301),
+                                              (256, 8, 256 * 300), (512, 6, 512 * 40)])
 def test_hsq_compressor_rows_path_matches_gqx(rng, interpret_rows_kernels, c_dim, k_bit, size):
-    """A large codebook (dim 8, K 1024) and a ragged size (dim 24): compress,
-    decompress, decompress_batch and decode_mean against gqx with
-    ``use_pallas=True`` and ``random=False``."""
+    """A large codebook (dim 8, K 1024), a ragged size (dim 24) and the wide
+    route's dims (256, K 256; 512, K 64): compress, decompress,
+    decompress_batch and decode_mean against gqx with ``use_pallas=True``
+    and ``random=False``."""
     users = 3
     kw = dict(quantizer="hsq", c_dim=c_dim, k_bit=k_bit, n_bit=6, random=False, hsq_passes=1)
     gcfg = GqxConfig(**kw)
@@ -206,12 +209,14 @@ def test_split_bf16_3_is_exact(rng):
     assert torch.equal(hb, xb) and not bool(mb.any()) and not bool(lb.any())
 
 
-@pytest.mark.parametrize("dim", [5, 8, 24, 32])
+@pytest.mark.parametrize("dim", [5, 8, 24, 32, 64, 256, 512])
 def test_tensor_core_passes_within_tolerance(rng, dim):
-    """The products the tensor-core kernel sums, in float64: for bf16 rows
-    the three passes x.c_h + x.c_m + x.c_l equal x.c exactly; for float32
-    rows the six kept passes (mm, hl, lh, hm, mh, hh) miss x.c by less than
-    2^-23 of |x|.|c|, far inside the 1e-6 the kernel is held to."""
+    """The products the tensor-core kernels sum, in float64: for bf16 rows
+    the three passes x.c_h + x.c_m + x.c_l equal x.c exactly, product by
+    product (and, up to dim 32, where float64 sums them exactly, sum by
+    sum); for float32 rows the six kept passes (mm, hl, lh, hm, mh, hh) miss
+    x.c by less than 2^-23 of |x|.|c|, far inside the 1e-6 the kernels are
+    held to."""
     cb = torch.from_numpy(_codebook(rng, 64, dim))
     rows = torch.from_numpy((rng.standard_normal((500, dim)) *
                              2.0 ** rng.integers(-30, 30, (500, 1))).astype(np.float32))
@@ -219,12 +224,88 @@ def test_tensor_core_passes_within_tolerance(rng, dim):
     mag = rows.double().abs() @ cb.double().abs().t()
     c = [p.double() for p in split_bf16_3(cb)]
     xb = rows.to(torch.bfloat16).to(torch.float32)
-    three = sum(xb.double() @ p.t() for p in c)
-    assert torch.equal(three, xb.double() @ cb.double().t())
+    for k0 in range(0, 64, 8):                  # (rows, 8 codewords, dim) at a time
+        prods = [xb.double()[:, None] * p[None, k0:k0 + 8] for p in c]
+        assert torch.equal(prods[0] + prods[1] + prods[2],
+                           xb.double()[:, None] * cb.double()[None, k0:k0 + 8])
+    if dim <= 32:
+        three = sum(xb.double() @ p.t() for p in c)
+        assert torch.equal(three, xb.double() @ cb.double().t())
     x = [p.double() for p in split_bf16_3(rows)]
     kept = [(1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0)]      # (x piece, c piece), h m l
     six = sum(x[i] @ c[j].t() for i, j in kept)
     assert bool(((six - exact).abs() <= 2.0 ** -23 * mag).all())
+
+
+def _round_toward_zero(t):
+    """float64 -> float32, rounded toward zero."""
+    r = t.float()
+    return torch.where(r.double().abs() > t.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _wide_route_products(rows, cb, two_sets):
+    """The wide route's products (``csrc/hsq_rows_encode_wide.cu``),
+    modelled: per k16 step of the dims, each kept pass's 16 exact products
+    added to its accumulator in one sum rounded toward zero, as the tensor
+    cores round; the passes smallest first, (h, h) into one set and the
+    smaller ones into a second, the two added in float32 at the end
+    (``two_sets``), or all into one set."""
+    c = split_bf16_3(cb)
+    if rows.dtype == torch.bfloat16:
+        x, kept = (rows.float(),), [(0, 2), (0, 1), (0, 0)]
+    else:
+        x, kept = split_bf16_3(rows), [(1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0)]
+    big = torch.zeros(rows.shape[0], cb.shape[0])
+    small = torch.zeros_like(big)
+    for e in range(0, rows.shape[1], 16):
+        for i, j in kept:
+            step = x[i][:, e:e + 16].double() @ c[j][:, e:e + 16].double().t()
+            if two_sets and (i, j) != (0, 0):
+                small = _round_toward_zero(small.double() + step)
+            else:
+                big = _round_toward_zero(big.double() + step)
+    return big + small
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dim", [256, 512])
+def test_wide_route_two_accumulator_sets_keep_codes_off_near_ties(rng, dim, dtype):
+    """The wide route's accumulation under the tensor cores' truncation
+    (``_wide_route_products``), on rows over 2^-20..2^20 and on near-ties
+    (the 400 of 8,000 rows c_i + c_j plus noise, cast to the input type,
+    whose top two |p| lie closest): with two accumulator sets, the plan the
+    kernel takes, every |p| lies within 2.5e-6 of the row's largest |p| of
+    its float64 value, so a code can differ from the exact argmax only where
+    the top two |p| are within 1e-5 relative, and none differs elsewhere; on
+    average one set errs at least twice as much."""
+    k = 256
+    cb = torch.from_numpy(get_codebook(dim, k))
+
+    def margins(x):
+        top = (x.double() @ cb.double().t()).abs().topk(2, dim=1).values
+        return (top[:, 0] - top[:, 1]) / top[:, 0]
+
+    n = 8000
+    i, j = rng.integers(0, k, n), rng.integers(0, k, n)
+    j = np.where(i == j, (j + 1) % k, j)
+    noise = rng.standard_normal((n, dim)) * 10.0 ** rng.uniform(-8, -3, (n, 1)) / np.sqrt(dim)
+    near = torch.from_numpy((cb.numpy()[i] + cb.numpy()[j] + noise).astype(np.float32)).to(dtype)
+    near = near[margins(near).argsort()[:400]]
+    rand = rng.standard_normal((600, dim)) * 2.0 ** rng.uniform(-20, 20, (600, 1))
+    rows = torch.cat([torch.from_numpy(rand.astype(np.float32)).to(dtype), near])
+    exact = rows.double() @ cb.double().t()
+    top = exact.abs().amax(1)
+    margin = margins(rows)
+    assert int((margin <= 1e-5).sum()) >= 100            # the near-ties are there
+    err = {}
+    for two in (True, False):
+        p = _wide_route_products(rows, cb, two).double()
+        err[two] = (p - exact).abs().amax(1) / top
+        if two:
+            assert float(err[two].max()) <= 2.5e-6
+            differ = p.abs().argmax(1) != exact.abs().argmax(1)
+            assert bool((margin[differ] <= 1e-5).all())
+    assert float(err[False].mean()) >= 2 * float(err[True].mean())
 
 
 @pytest.mark.parametrize("k", [7, 1024])
@@ -278,12 +359,15 @@ def test_compress_batch_takes_bf16_rows_as_they_are(rng, monkeypatch):
 
 
 def test_rows_encode_route_is_a_function_of_dtype_and_dim():
+    """dims up to 32 on ``tensor_core``, every wider dim on
+    ``tensor_core_wide``, with no cap."""
+    wide = (33, 36, 256, 257, 512, 576)
     for dtype in (torch.bfloat16, torch.float32):
         assert [hsq_rows.route(dtype, d) for d in (1, 5, 8, 24, 32)] == [hsq_rows.TENSOR_CORE] * 5
-        assert [hsq_rows.route(dtype, d) for d in (33, 36, 256)] == [hsq_rows.CUDA_CORE] * 3
-        with pytest.raises(NotImplementedError):
-            hsq_rows.route(dtype, 257)
+        assert [hsq_rows.route(dtype, d) for d in wide] == [hsq_rows.TENSOR_CORE_WIDE] * 6
+        with pytest.raises(ValueError):
+            hsq_rows.route(dtype, 0)
     for dtype in (torch.float16, torch.float64, torch.int32):
         with pytest.raises(ValueError):
             hsq_rows.route(dtype, 8)
-    assert set(hsq_rows.launches_by_route) == {hsq_rows.TENSOR_CORE, hsq_rows.CUDA_CORE}
+    assert set(hsq_rows.launches_by_route) == {hsq_rows.TENSOR_CORE, hsq_rows.TENSOR_CORE_WIDE}

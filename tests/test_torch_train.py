@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import gqx.compress.vq as gqx_vq
+import gqx.ops.pallas_hsq as gqx_rows
 from gqx.config import GQConfig as GqxConfig
 from gqx.models import create_model as gqx_create_model
 from gqx.ops import pallas_hsq4
@@ -36,11 +37,16 @@ RTOL, ATOL = 1e-5, 1e-7
 
 @pytest.fixture
 def interpret_kernels(monkeypatch):
+    """gqx's flat-layout and row-major kernels in interpret mode (its
+    compressor calls them without ``interpret``)."""
     shim = types.SimpleNamespace(**{
         name: functools.partial(getattr(pallas_hsq4, name), interpret=True)
         for name in ("hsq_encode_flat", "hsq_decode_flat", "hsq_decode_mean")
     })
     monkeypatch.setattr(gqx_vq, "_hsq_kernels", lambda: shim)
+    for name in ("hsq_encode", "hsq_decode"):
+        monkeypatch.setattr(gqx_rows, name,
+                            functools.partial(getattr(gqx_rows, name), interpret=True))
 
 
 def _setup(name, rng, port_extra=None, **extra):
@@ -140,6 +146,22 @@ def test_two_hsq_steps_match_gqx(rng, interpret_kernels, name):
             # step, which then moves every gradient of the next step; the
             # second step starts again from gqx's state
             _load(model, gstate, state)
+
+
+@pytest.mark.parametrize("c_dim", [256, 512])
+def test_two_wide_rows_fcn_steps_match_gqx(rng, interpret_kernels, c_dim):
+    """HSQ at c_dim 256 and 512 / k_bit 8 plans the FCN's weights as one
+    row-major unit of 262,144 elements (dim 256 or 512, K 256: the wide
+    route's shapes on the card); two folded steps against gqx with its
+    row-major kernels in interpret mode."""
+    gstate, gstep, state, plan, step, x, y = _setup("fcn", rng, c_dim=c_dim, k_bit=8)
+    comp = plan.units[0].compressor
+    assert (plan.units[0].size, comp.dim, comp.K, comp.flat_ok) == (262_144, c_dim, 256, False)
+    for s in range(2):
+        gstate = _run_both(gstate, gstep, state, step, x[s], y[s])
+        flipped, total = _compare(state.model, state, plan, gstate, with_trace=True)
+        print(f"c_dim {c_dim} step {s + 1}: {flipped} of {total} HSQ subvectors differ")
+        assert flipped == 0
 
 
 def test_two_looped_fcn_steps_match_gqx(rng, interpret_kernels, monkeypatch):
