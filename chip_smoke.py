@@ -21,9 +21,10 @@
    weight gradient at the five 3x3 geometries of ResNet-50 (8 users x 32,
    bf16: the stem on the narrow kernel, the four others on the
    tensor-core kernel), at the five of ResNet-18 and ResNet-50 in float32
-   (the stem on the CUDA-core kernel, the others on the float32
-   tensor-core kernel, with the CUDA-core kernel timed beside it) and at
-   odd ones on all four; and times kernel, plain version and, where one
+   (the stem on the narrow float32 kernel, the others on the float32
+   tensor-core kernel, with per_user_dw.cu, the CUDA-core kernel both
+   replaced, checked and timed beside each) and at odd ones on all four
+   routes; and times kernel, plain version and, where one
    exists, the PyTorch call computing the same function (for the conv
    weight gradient, one grouped call for all users, with the per-user
    calls beside it).
@@ -48,7 +49,7 @@
    on the wide route), its launches counted the same way.
    The counters must equal what the code implies (the per-user conv weight
    gradient per folded step: in bf16 13 tensor-core and 1 narrow launches,
-   in float32 13 float32 tensor-core and 1 CUDA-core launches; the
+   in float32 13 float32 tensor-core and 1 narrow float32 launches; the
    row-major encode by route).  The aggregate of one more step of each of
    P1-P4, P7 and P8 (and P2's new
    error-feedback state) is recomputed on the CPU through the plain
@@ -57,7 +58,7 @@
 5. Compares folded and looped per-user gradients from the same weights and
    batch on the card: ResNet-18 float32 and ResNet-50 bf16, with the conv
    weight gradient's launches of each folded run counted (the float32 run:
-   13 float32 tensor-core and 1 CUDA-core launches).
+   13 float32 tensor-core and 1 narrow float32 launches).
 6. Steps the four other configurations of the canonical comparison (sgd,
    qsgd2bit, terngrad, sign), folded; the qsgd and sign aggregates are
    recomputed on the CPU like the others.  Takes one eval step.
@@ -173,14 +174,15 @@ EF_EPOCH = 1.0   # the error-feedback scale is config.ef_scale(EF_EPOCH)
 # gradient the folded step takes from the per_user_dw kernels:
 # (Ci, Co, H = W, convs of that geometry); in bf16 the stem's 3 input
 # channels take the narrow kernel, the others the tensor-core kernel; in
-# float32 (P7) the stem takes the CUDA-core kernel, the others the float32
-# tensor-core kernel
+# float32 (P7) the stem takes the narrow float32 kernel, the others the
+# float32 tensor-core kernel; per_user_dw.cu (CUDA cores) serves no path
 DW_GEOMETRIES = ((3, 64, 32, 1), (64, 64, 32, 3), (128, 128, 16, 3),
                  (256, 256, 8, 5), (512, 512, 4, 2))
 DW_PER_STEP = {"per_user_dw_narrow": 1, "per_user_dw_tc": sum(g[3] for g in DW_GEOMETRIES[1:]),
-               "per_user_dw": 0, "per_user_dw_tc_f32": 0}
-DW_PER_STEP_F32 = {"per_user_dw_narrow": 0, "per_user_dw_tc": 0, "per_user_dw": 1,
-                   "per_user_dw_tc_f32": sum(g[3] for g in DW_GEOMETRIES[1:])}
+               "per_user_dw": 0, "per_user_dw_tc_f32": 0, "per_user_dw_narrow_f32": 0}
+DW_PER_STEP_F32 = {"per_user_dw_narrow": 0, "per_user_dw_tc": 0, "per_user_dw": 0,
+                   "per_user_dw_tc_f32": sum(g[3] for g in DW_GEOMETRIES[1:]),
+                   "per_user_dw_narrow_f32": 1}
 # the same convs of CIFAR ResNet-18 (the same five geometries, other
 # counts), which the float32 folded gradients of folded_vs_looped take
 DW_GEOMETRIES_F32 = ((3, 64, 32, 1), (64, 64, 32, 4), (128, 128, 16, 3),
@@ -722,12 +724,13 @@ def dw_kernel_phase(seed: int):
     3x3 geometries of ResNet-50 at 8 users x 32 images in bf16 (the stem's 3
     input channels take the narrow kernel, the others the tensor-core
     kernel, as the per-route counters must show), the same five in float32,
-    which ResNet-18 and ResNet-50 share (the stem on the CUDA-core kernel,
-    the others on the float32 tensor-core kernel, with the CUDA-core kernel
-    checked and timed beside it: the route it replaced), then odd ones: the
-    stem's 3 channels in float32 with an even window and uneven pads (CUDA
-    cores); a 5x5 window with uneven pads on a 7x9 plane with ragged
-    channel tiles (float32 and bf16 tensor cores); 15 channels under a 7x7
+    which ResNet-18 and ResNet-50 share (the stem on the narrow float32
+    kernel, the others on the float32 tensor-core kernel, with
+    per_user_dw.cu, the CUDA-core kernel both replaced, checked and timed
+    beside each), then odd ones: the stem's 3 channels in float32 with an
+    even window and uneven pads (narrow float32); a 5x5 window with uneven
+    pads on a 7x9 plane with ragged channel tiles (float32 and bf16 tensor
+    cores); 15 channels under a 7x7
     window on rows of 70 (735 columns, 23 column tiles) and one channel
     under a 3x7 window with pads (2, 5) on a 9x7 plane (narrow).
 
@@ -740,7 +743,9 @@ def dw_kernel_phase(seed: int):
     the bytes; for float32 the fp32 FMA bound is kept beside
     (``fp32_fma_bound_ms``).
 
-    Returns one entry per route; its times are per training step: each
+    Returns one entry per route, and one for per_user_dw.cu at the float32
+    stem (``baseline_of`` the narrow float32 route; no path launches it);
+    its times are per training step: each
     geometry's time weighted by how many convs of the step have it (a
     ResNet-50 bf16 step for the tensor-core and narrow routes, a ResNet-50
     float32 step, P7's, for the float32 routes; the float32 tensor-core
@@ -792,15 +797,18 @@ def dw_kernel_phase(seed: int):
         return want_route, float(err.max())
 
     def check_cuda_core(x, dy, u, name):
-        """per_user_dw.cu where the float32 tensor-core route runs, as it is
-        timed beside it: within the same tolerance of the plain version."""
+        """per_user_dw.cu where a float32 route runs, as it is timed beside
+        it: within the same tolerance of the plain version.  Returns its
+        largest error."""
         got = cuda_core_dw(x, dy, u, 3, 3, 1, 1)
         want = dw_ops.per_user_dw_plain(x, dy, u, 3, 3, 1, 1)
         mag = dw_ops.per_user_dw_plain(x.abs(), dy.abs(), u, 3, 3, 1, 1)
         n = x.shape[0] // u * x.shape[2] * x.shape[3]
-        if not bool(((got - want).abs() <= n ** 0.5 * 2.0 ** -23 * mag + 1e-30).all()):
+        err = (got - want).abs()
+        if not bool((err <= n ** 0.5 * 2.0 ** -23 * mag + 1e-30).all()):
             raise AssertionError(f"per_user_dw.cu {name}: beyond sqrt(n) * 2^-23 of the summed "
                                  "magnitudes")
+        return float(err.max())
 
     def per_user_library(x, dy, u, kh, kw, ph, pw):
         xp = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph))
@@ -826,19 +834,20 @@ def dw_kernel_phase(seed: int):
             "library_events_ms")
     routes = {r: dict(tot=dict.fromkeys(keys, 0.0), worst=0.0,
                       by={"bytes": 0.0, "operations": 0.0}, geometries=[])
-              for r in (dw_ops.CUDA_CORE, dw_ops.TENSOR_CORE, dw_ops.NARROW,
-                        dw_ops.TENSOR_CORE_F32)}
+              for r in (dw_ops.TENSOR_CORE, dw_ops.NARROW, dw_ops.TENSOR_CORE_F32,
+                        dw_ops.NARROW_F32)}
     # a float32 step of ResNet-18 and of ResNet-50 (P7): the same five
-    # geometries, other counts; the stem on the CUDA cores either way
+    # geometries, other counts; the stem on the narrow float32 route either way
     step_keys = ("ms", "cuda_core_ms", "library_ms", "plain_ms", "bound_ms", "fp32_fma_bound_ms",
                  "events_ms", "cuda_core_events_ms")
     f32_counts = {"ResNet-18": {g[:3]: g[3] for g in DW_GEOMETRIES_F32},
                   "ResNet-50": {g[:3]: g[3] for g in DW_GEOMETRIES}}
     f32_steps = {net: dict.fromkeys(step_keys, 0.0) for net in f32_counts}
     # the bound counts the operations the route runs: bf16 passes on the tensor
-    # cores (six over the exact pieces of float32 values), one fp32 FMA a product
-    # on the CUDA cores
-    passes = {dw_ops.TENSOR_CORE: 1, dw_ops.NARROW: 1, dw_ops.TENSOR_CORE_F32: 6}
+    # cores (six over the exact pieces of float32 values)
+    passes = {dw_ops.TENSOR_CORE: 1, dw_ops.NARROW: 1, dw_ops.TENSOR_CORE_F32: 6,
+              dw_ops.NARROW_F32: 6}
+    baseline = None   # per_user_dw.cu at the float32 stem
     tf32 = torch.backends.cudnn.allow_tf32
     for dtype, geometries in ((torch.bfloat16, DW_GEOMETRIES), (torch.float32, DW_GEOMETRIES_F32)):
         size = 2 if dtype == torch.bfloat16 else 4
@@ -861,8 +870,7 @@ def dw_kernel_phase(seed: int):
                 del lib, ref
                 flop = 2.0 * 9 * users * batch * hw * hw * ci * co
                 moved = (x.numel() + dy.numel()) * size + users * co * ci * 9 * 4
-                b_ms, b_by = (bound(moved, passes[which] * flop, BF16_FLOPS) if which in passes
-                              else bound(moved, flop, FP32_FLOPS))
+                b_ms, b_by = bound(moved, passes[which] * flop, BF16_FLOPS)
                 kernel = lambda: dw_ops.per_user_dw(x, dy, users, 3, 3, 1, 1)
                 plain = lambda: dw_ops.per_user_dw_plain(x, dy, users, 3, 3, 1, 1)
                 per_user = lambda: per_user_library(x, dy, users, 3, 3, 1, 1)
@@ -876,17 +884,20 @@ def dw_kernel_phase(seed: int):
                 extra = ""
                 if dtype == torch.float32:
                     g["per_step"] = {net: c[(ci, co, hw)] for net, c in f32_counts.items()}
-                    g["cuda_core_ms"], g["cuda_core_events_ms"] = g["ms"], g["events_ms"]
                     g["fp32_fma_bound_ms"], _ = bound(moved, flop, FP32_FLOPS)
-                    if which == dw_ops.TENSOR_CORE_F32:
-                        # the same function on per_user_dw.cu, the route it replaced
-                        cuda_core = lambda: cuda_core_dw(x, dy, users, 3, 3, 1, 1)
-                        check_cuda_core(x, dy, users, name)
-                        g["cuda_core_ms"] = device_ms(cuda_core, 10)
-                        g["cuda_core_events_ms"] = cuda_ms(cuda_core, 10)
-                        extra = (f"; per_user_dw.cu {g['cuda_core_ms']:.4f} ms (events "
-                                 f"{g['cuda_core_events_ms']:.4f}); fp32 FMA bound "
-                                 f"{g['fp32_fma_bound_ms']:.4f} ms")
+                    # the same function on per_user_dw.cu, the kernel both routes replaced
+                    cuda_core = lambda: cuda_core_dw(x, dy, users, 3, 3, 1, 1)
+                    cuda_core_err = check_cuda_core(x, dy, users, name)
+                    g["cuda_core_ms"] = device_ms(cuda_core, 10)
+                    g["cuda_core_events_ms"] = cuda_ms(cuda_core, 10)
+                    extra = (f"; per_user_dw.cu {g['cuda_core_ms']:.4f} ms (events "
+                             f"{g['cuda_core_events_ms']:.4f}); fp32 FMA bound "
+                             f"{g['fp32_fma_bound_ms']:.4f} ms")
+                    if which == dw_ops.NARROW_F32:
+                        baseline = dict(g, route=dw_ops.CUDA_CORE, ms=g["cuda_core_ms"],
+                                        events_ms=g["cuda_core_events_ms"],
+                                        tflops=flop / g["cuda_core_ms"] * 1e-9,
+                                        max_abs_err=cuda_core_err)
                     for net, c in g["per_step"].items():
                         for key in step_keys:
                             f32_steps[net][key] += c * g[key]
@@ -913,10 +924,10 @@ def dw_kernel_phase(seed: int):
         f"{step['library_events_ms']:.4f} ms")
     for net, t in f32_steps.items():
         log(f"[per_user_dw per step] {net} float32, 14 convs (13 float32 tensor-core, the stem "
-            f"CUDA-core), device time: {t['ms']:.4f} ms; all 14 on per_user_dw.cu "
+            f"narrow float32), device time: {t['ms']:.4f} ms; all 14 on per_user_dw.cu "
             f"{t['cuda_core_ms']:.4f} ms; library (grouped conv2d_weight, TF32 off) "
             f"{t['library_ms']:.4f} ms; plain {t['plain_ms']:.3f} ms; bound {t['bound_ms']:.4f} ms "
-            f"(six bf16 passes, the stem fp32 FMA), {t['fp32_fma_bound_ms']:.4f} ms (fp32 FMA); "
+            f"(six bf16 passes), {t['fp32_fma_bound_ms']:.4f} ms (fp32 FMA); "
             f"by events: {t['events_ms']:.4f} ms, per_user_dw.cu {t['cuda_core_events_ms']:.4f} ms")
     x, dy = make(3, 20, 32, 32, torch.float32, n=3 * 5)
     check(x, dy, 3, 2, 2, 0, 1, "3->20 @32x32 float32 2x2 pads (0,1)")
@@ -928,11 +939,12 @@ def dw_kernel_phase(seed: int):
     check(x, dy, 2, 7, 7, 3, 2, "15->70 @7x70 bf16 7x7 pads (3,2)")
     x, dy = make(1, 8, 9, 7, torch.bfloat16, n=4)
     check(x, dy, 1, 3, 7, 2, 5, "1->8 @9x7 bf16 3x7 pads (2,5)")
-    sources = {dw_ops.CUDA_CORE: ("per_user_dw", "gqx_torch/csrc/per_user_dw.cu"),
-               dw_ops.TENSOR_CORE: ("per_user_dw_tc", "gqx_torch/csrc/per_user_dw_tc.cu"),
+    sources = {dw_ops.TENSOR_CORE: ("per_user_dw_tc", "gqx_torch/csrc/per_user_dw_tc.cu"),
                dw_ops.NARROW: ("per_user_dw_narrow", "gqx_torch/csrc/per_user_dw_narrow.cu"),
                dw_ops.TENSOR_CORE_F32: ("per_user_dw_tc_f32",
-                                        "gqx_torch/csrc/per_user_dw_tc_f32.cu")}
+                                        "gqx_torch/csrc/per_user_dw_tc_f32.cu"),
+               dw_ops.NARROW_F32: ("per_user_dw_narrow_f32",
+                                   "gqx_torch/csrc/per_user_dw_narrow_f32.cu")}
     entries = {}
     for which, (name, source) in sources.items():
         r = routes[which]
@@ -948,6 +960,16 @@ def dw_kernel_phase(seed: int):
     tf["cuda_core_ms"] = sum(g["per_step"]["ResNet-50"] * g["cuda_core_ms"]
                              for g in tf["geometries"])
     tf["float32_steps"] = f32_steps
+    nf = entries["per_user_dw_narrow_f32"]
+    nf["engine"] = ("tensor cores: mma.sync m16n8k16 bf16 -> float32 on exact bf16 pieces, 6 of "
+                    "the 9 cross products in two sets; (ci, tap) columns, the pixels the depth")
+    nf["cuda_core_ms"], nf["cuda_core_events_ms"] = baseline["ms"], baseline["events_ms"]
+    # per_user_dw.cu, checked and timed at the float32 stem beside the route that replaced it
+    entries["per_user_dw"] = dict(
+        name="per_user_dw", route="cuda", source="gqx_torch/csrc/per_user_dw.cu",
+        replaces="gqx/ops/pallas_dw.py:128", baseline_of="per_user_dw_narrow_f32",
+        engine="CUDA cores: float32 FMAs", geometries=[baseline],
+        **{k: baseline[k] for k in keys + ("bound_by", "max_abs_err")})
     return entries
 
 
@@ -1035,7 +1057,8 @@ def counters(reset=False):
             "philox_uniform": rand_ops.launches,
             "per_user_dw": by_route[dw_ops.CUDA_CORE], "per_user_dw_tc": by_route[dw_ops.TENSOR_CORE],
             "per_user_dw_narrow": by_route[dw_ops.NARROW],
-            "per_user_dw_tc_f32": by_route[dw_ops.TENSOR_CORE_F32]}
+            "per_user_dw_tc_f32": by_route[dw_ops.TENSOR_CORE_F32],
+            "per_user_dw_narrow_f32": by_route[dw_ops.NARROW_F32]}
 
 
 def per_user_grads(cfg, state, plan, x, y):
@@ -1268,7 +1291,7 @@ def folded_vs_looped(seed: int):
     biases are drawn from [1, 2], which keeps most ReLU inputs away from 0.
     Returns the per_user_dw launches of each folded run, counted from 0 just
     before it: ResNet-18 float32 takes the float32 tensor-core kernel for 13
-    of its 14 stride-1 3x3 convs and the CUDA-core kernel for the stem,
+    of its 14 stride-1 3x3 convs and the narrow float32 kernel for the stem,
     ResNet-50 bf16 the 13 + 1 of a folded step.
 
     ResNet-18 in float32 (no TF32): the two routes differ by the summation
@@ -1452,19 +1475,19 @@ def main():
     # float32 routes of K7 too
     for label, got in folded_vs_looped(args.seed).items():
         if "float32" in label:
-            for kernel in ("per_user_dw", "per_user_dw_tc_f32"):
+            for kernel in ("per_user_dw_narrow_f32", "per_user_dw_tc_f32"):
                 entries[kernel]["launches"] += got[kernel]
                 entries[kernel]["launches_by_path"][label] = got[kernel]
     torch.cuda.empty_cache()
     for e in entries.values():
-        if e["launches"] < 1:
+        if e["launches"] < 1 and "baseline_of" not in e:
             raise AssertionError(f"{e['name']} was launched on no path")
 
     comparison_phase(args.seed, args.steps)
 
     order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
              "hsq_rows_encode_tc", "hsq_rows_encode_wide", "hsq_rows_decode", "per_user_dw",
-             "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32")
+             "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32", "per_user_dw_narrow_f32")
     print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

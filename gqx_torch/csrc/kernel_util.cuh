@@ -31,18 +31,16 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // The three exact pieces of two values, as packed bf16 pairs: h the value
 // rounded to bf16, m the rest rounded to bf16, l what is left (v = h + m + l
 // exactly for |v| from 2^-110 up to the largest bf16, and for 0).
+// Each piece is rounded once, both values by one packed conversion, and
+// read back as float32 from its bf16 halves.
 __device__ __forceinline__ void split3(float v0, float v1, unsigned (&w)[3]) {
-  const float h0 = bf16_round(v0), h1 = bf16_round(v1);
-  const float r0 = v0 - h0, r1 = v1 - h1;               // exact
-  const float m0 = bf16_round(r0), m1 = bf16_round(r1);
-  w[0] = pack_bf16(h0, h1);
-  w[1] = pack_bf16(m0, m1);
-  w[2] = pack_bf16(r0 - m0, r1 - m1);                   // exact, bf16-representable
+  w[0] = pack_bf16(v0, v1);
+  const float r0 = v0 - __uint_as_float(w[0] << 16);            // exact
+  const float r1 = v1 - __uint_as_float(w[0] & 0xFFFF0000u);
+  w[1] = pack_bf16(r0, r1);
+  w[2] = pack_bf16(r0 - __uint_as_float(w[1] << 16),            // exact, bf16-representable
+                   r1 - __uint_as_float(w[1] & 0xFFFF0000u));
 }

@@ -6,15 +6,14 @@
 //
 // with x (U*B, Ci, H, W) and dy (U*B, Co, H, W) float32 in NCHW, xpad the
 // input with a zero border (ph, pw the low pads), and dW (U, Co, Ci, kh, kw)
-// float32 in the weight's OIHW layout, accumulated with float32 FMAs.  This
-// is the route of float32 inputs with fewer than 16 input channels (the
-// stem's 3; ops/dw.py::route).  Float32 inputs with 16 or more take
-// per_user_dw_tc_f32.cu (exact bf16 pieces on the tensor cores), bf16 inputs
-// per_user_dw_tc.cu (16 input channels or more) or per_user_dw_narrow.cu
-// (fewer).  The 64-channel tiling below serves no training path: it keeps
-// this kernel callable at the wider layers (through its C entry, by
-// chip_smoke.py and gqx_torch/scripts/dw_f32_probe.py), to be timed beside
-// the route that replaced it there.
+// float32 in the weight's OIHW layout, accumulated with float32 FMAs.  No
+// route of ops/dw.py takes it: float32 inputs go to per_user_dw_tc_f32.cu
+// (16 input channels or more) or per_user_dw_narrow_f32.cu (fewer), both on
+// exact bf16 pieces on the tensor cores, bf16 inputs to per_user_dw_tc.cu or
+// per_user_dw_narrow.cu.  It stays callable through its C entry
+// (gqx_torch/scripts/dw_f32_probe.py::cuda_core_dw, used by chip_smoke.py,
+// the probes and a cuda test) as the baseline that those routes are checked
+// and timed beside.
 //
 // Replaces: gqx/ops/pallas_dw.py::per_user_dw (_dw_kernel) for float32
 // inputs.  The TPU kernel views both operands as (B*H*W, C) in NHWC, rolls

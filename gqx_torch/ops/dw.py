@@ -29,9 +29,13 @@ Which kernel, ``route`` decides from the dtype and the shapes alone:
   least 16 input channels and kw <= 7, the tensor-core route's design on
   exact bf16 pieces of the float32 values (six of the nine cross products
   per fragment pair, at float32 accuracy);
-- ``"cuda_core"`` (``csrc/per_user_dw.cu``): float32 with fewer than 16
-  input channels (the stem's 3), on float32 FMAs; kw > 7 takes this route
-  too and raises.
+- ``"narrow_f32"`` (``csrc/per_user_dw_narrow_f32.cu``): float32 with
+  fewer than 16 input channels (the stem's 3) and kw <= 7, the narrow
+  route's GEMM on the float32 route's exact bf16 pieces;
+- ``"cuda_core"``: kw > 7, which raises.  Its kernel, ``csrc/per_user_dw.cu``
+  (float32 FMAs), serves no training path; it stays callable through its C
+  entry (``gqx_torch.scripts.dw_f32_probe.cuda_core_dw``) as the baseline
+  that the float32 routes are timed and checked beside.
 """
 
 from __future__ import annotations
@@ -45,12 +49,13 @@ import torch.nn.functional as F
 from gqx_torch.ops import _build
 
 TENSOR_CORE, NARROW, CUDA_CORE = "tensor_core", "narrow", "cuda_core"
-TENSOR_CORE_F32 = "tensor_core_f32"
+TENSOR_CORE_F32, NARROW_F32 = "tensor_core_f32", "narrow_f32"
 
 #: launches of any of the CUDA kernels (not of the plain version), and by
 #: route; ``launches`` is always the sum of ``launches_by_route``
 launches = 0
-launches_by_route = {TENSOR_CORE: 0, NARROW: 0, CUDA_CORE: 0, TENSOR_CORE_F32: 0}
+launches_by_route = {TENSOR_CORE: 0, NARROW: 0, CUDA_CORE: 0, TENSOR_CORE_F32: 0,
+                     NARROW_F32: 0}
 
 MAX_KW = 7            # the kernels keep a kw-wide window of taps per block
 _TILE_CO = 64         # output channels per block, every route
@@ -61,13 +66,19 @@ _ROUTES = {
     TENSOR_CORE: ("per_user_dw_tc", "gqx_per_user_dw_tc", 3, 3),
     NARROW: ("per_user_dw_narrow", "gqx_per_user_dw_narrow", 2, MAX_KW),
     TENSOR_CORE_F32: ("per_user_dw_tc_f32", "gqx_per_user_dw_tc_f32", 2, 3),
+    NARROW_F32: ("per_user_dw_narrow_f32", "gqx_per_user_dw_narrow_f32", 2, MAX_KW),
 }
-# the narrow route: (ci, tap) columns per block, dy pixels of a piece at
-# most, and the shared memory its staged x planes aim for and may take
+# the narrow routes: (ci, tap) columns per block, dy pixels of a piece at
+# most, and the shared memory their staged x planes aim for; per route the
+# bytes of a staged element (a bf16 value; a float32 value's three bf16
+# pieces in 8 bytes) and the staged bytes a block may take (kMaxStaged
+# elements of the kernel: the float32 kernel keeps 4 more bytes of raw value
+# per element and a 64 KB ring of dy beside them in its 227 KB)
 _NARROW_TILE_N = 32
 _NARROW_PIXELS = 1024
 _NARROW_STAGE = 32 * 1024
-_NARROW_MAX_STAGE = 2 * ((1 << 16) - 1024)   # kMaxStaged of the kernel, in bytes
+_NARROW_ELEMENT = {NARROW: 2, NARROW_F32: 8}
+_NARROW_MAX_STAGE = {NARROW: 2 * ((1 << 16) - 1024), NARROW_F32: 8 * ((232448 - 65536) // 12)}
 
 
 def _check(x, dy, users, kh, kw, ph, pw):
@@ -108,7 +119,7 @@ def route(dtype: torch.dtype, ci: int, kw: int) -> str:
         return CUDA_CORE
     if dtype == torch.bfloat16:
         return TENSOR_CORE if ci >= 16 else NARROW
-    return TENSOR_CORE_F32 if ci >= 16 else CUDA_CORE
+    return TENSOR_CORE_F32 if ci >= 16 else NARROW_F32
 
 
 def batch_splits(users: int, batch: int, ci: int, co: int, kh: int, sm_count: int,
@@ -146,29 +157,31 @@ def _fewest_ranges(blocks: int, units: int, slots: int, most: int) -> int:
     return best
 
 
-def _narrow_stage_bytes(ci: int, rows: int, w: int, kh: int, kw: int) -> int:
-    """Shared memory of the narrow kernel's staged x: per channel rows + kh - 1
-    rows of w + kw - 1 bf16 columns."""
-    return 2 * ci * (rows + kh - 1) * (w + kw - 1)
+def _narrow_stage_bytes(ci: int, rows: int, w: int, kh: int, kw: int,
+                        which: str = NARROW) -> int:
+    """Shared memory of a narrow kernel's staged x: per channel rows + kh - 1
+    rows of w + kw - 1 columns of the route's staged elements."""
+    return _NARROW_ELEMENT[which] * ci * (rows + kh - 1) * (w + kw - 1)
 
 
 @functools.lru_cache(maxsize=None)
 def narrow_splits(users: int, batch: int, ci: int, co: int, h: int, w: int, kh: int, kw: int,
-                  sm_count: int):
-    """(band rows, ranges) of the narrow route.  A user's images are cut into
-    pieces, bands of rows that hold at most 1,024 pixels and whose staged x
-    fits 32 KB (one row at least), and its pieces into ranges.  The blocks,
-    one per (user, 64-row tile of Co, 32-column tile of the (ci, tap)
-    columns, range), run 2 per multiprocessor in waves; the ranges are chosen
-    as ``batch_splits`` chooses them, from every count up to the number of
-    pieces.  A function of the shapes and the card only, so the order of the
-    sum, and every bit of the result, repeats."""
+                  sm_count: int, which: str = NARROW):
+    """(band rows, ranges) of narrow route ``which`` (``NARROW`` or
+    ``NARROW_F32``).  A user's images are cut into pieces, bands of rows that
+    hold at most 1,024 pixels and whose staged x fits 32 KB (one row at
+    least), and its pieces into ranges.  The blocks, one per (user, 64-row
+    tile of Co, 32-column tile of the (ci, tap) columns, range), run 2 per
+    multiprocessor in waves; the ranges are chosen as ``batch_splits``
+    chooses them, from every count up to the number of pieces.  A function
+    of the shapes and the card only, so the order of the sum, and every bit
+    of the result, repeats."""
     rows = max(1, min(h, _NARROW_PIXELS // max(w, 1)))
-    while rows > 1 and _narrow_stage_bytes(ci, rows, w, kh, kw) > _NARROW_STAGE:
+    while rows > 1 and _narrow_stage_bytes(ci, rows, w, kh, kw, which) > _NARROW_STAGE:
         rows -= 1
     pieces = batch * -(-h // rows)
     blocks = users * -(-(ci * kh * kw) // _NARROW_TILE_N) * -(-co // _TILE_CO)
-    return rows, _fewest_ranges(blocks, pieces, _ROUTES[NARROW][2] * sm_count, pieces)
+    return rows, _fewest_ranges(blocks, pieces, _ROUTES[which][2] * sm_count, pieces)
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,7 +195,7 @@ def _entry(which: str):
     name, entry = _ROUTES[which][:2]
     lib = _build.load(name)
     fn = getattr(lib, entry)
-    ints = 12 if which == NARROW else 11
+    ints = 12 if which in (NARROW, NARROW_F32) else 11
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * ints + \
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -197,9 +210,10 @@ def _kernel(x, dy, users, kh, kw, ph, pw):
     if kw > MAX_KW or h >= 1 << 15:
         raise NotImplementedError(f"per_user_dw: no CUDA kernel for kw {kw} > {MAX_KW} "
                                   f"or {h} >= 32768 rows")
-    if which == NARROW and (w >= 1 << 15 or
-                            _narrow_stage_bytes(ci, 1, w, kh, kw) > _NARROW_MAX_STAGE):
-        raise NotImplementedError(f"per_user_dw: no narrow kernel for rows of {w} pixels")
+    narrow = which in (NARROW, NARROW_F32)
+    if narrow and (w >= 1 << 15 or
+                   _narrow_stage_bytes(ci, 1, w, kh, kw, which) > _NARROW_MAX_STAGE[which]):
+        raise NotImplementedError(f"per_user_dw: no {which} kernel for rows of {w} pixels")
     co = dy.shape[1]
     batch = n // users
     out = torch.empty((users, co, ci, kh, kw), dtype=torch.float32, device=x.device)
@@ -207,15 +221,16 @@ def _kernel(x, dy, users, kh, kw, ph, pw):
         return out
     if n == 0 or h * w == 0:
         return out.zero_()
-    if which == NARROW:
-        rows, splits = narrow_splits(users, batch, ci, co, h, w, kh, kw, _sm_count(x.device))
+    if narrow:
+        rows, splits = narrow_splits(users, batch, ci, co, h, w, kh, kw, _sm_count(x.device),
+                                     which)
         extra = [rows]
     else:
         splits, extra = batch_splits(users, batch, ci, co, kh, _sm_count(x.device), which, kw), []
     scratch = (torch.empty((splits,) + tuple(out.shape), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
     lib, fn = _entry(which)
-    # the narrow entry also takes the rows of a piece
+    # the narrow entries also take the rows of a piece
     err = fn(x.data_ptr(), dy.data_ptr(), users, batch,
              ci, co, h, w, kh, kw, ph, pw, *extra, splits,
              scratch.data_ptr() if scratch is not None else None, out.data_ptr(),

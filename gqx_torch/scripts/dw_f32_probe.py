@@ -116,10 +116,11 @@ def kernel_ms(fn, n: int) -> float:
 
 
 def cuda_core_dw(x, dy, users, kh, kw, ph, pw):
-    """``per_user_dw.cu``, the CUDA-core kernel that the float32 tensor-core
-    route replaced at 16 input channels or more, through its C entry at any
-    float32 width, with the ranges ``batch_splits`` gives it: for timing it
-    beside that route.  Counts no launch (no training path calls it)."""
+    """``per_user_dw.cu``, the CUDA-core kernel that the float32 routes
+    replaced (the tensor-core route at 16 input channels or more, the narrow
+    route below), through its C entry at any float32 width, with the ranges
+    ``batch_splits`` gives it: for timing and checking it beside them.
+    Counts no launch (no training path calls it)."""
     n, ci, h, w = x.shape
     co, batch = dy.shape[1], n // users
     out = torch.empty((users, co, ci, kh, kw), dtype=torch.float32, device=x.device)

@@ -51,9 +51,13 @@ def test_orthonormal_codebook_equal():
     assert orthonormal_codebook(16, seed=3).tobytes() == gqx_orthonormal(16, seed=3).tobytes()
 
 
-def test_missing_codebook_raises(tmp_path):
-    with pytest.raises(FileNotFoundError):
-        get_codebook(16, 256, search_dir=str(tmp_path))
+def test_missing_codebook_raises(tmp_path, monkeypatch):
+    """A codebook that no directory of the search path holds (K = 7 is
+    shipped for no dim) raises, naming the directories searched."""
+    for var in ("GQX_CODEBOOK_DIR", "GQX_REFERENCE_CODEBOOKS"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(FileNotFoundError, match=str(tmp_path)):
+        get_codebook(16, 7, search_dir=str(tmp_path))
 
 
 def test_subvector_dim_equal():

@@ -458,7 +458,8 @@ def test_cuda_tensor_never_reaches_a_plain_version(cuda_device, monkeypatch):
         x = torch.randn(4, ci, 8, 8, device=cuda_device, dtype=dtype)
         dw_ops.per_user_dw(x, torch.randn(4, 5, 8, 8, device=cuda_device, dtype=dtype),
                            2, 3, 3, 1, 1)
-    assert dw_ops.launches_by_route == {k: v + 1 for k, v in by_route.items()}
+    # float32 with 3 channels takes the narrow float32 route: no path reaches CC
+    assert dw_ops.launches_by_route == {k: v + (k != CC) for k, v in by_route.items()}
     torch.cuda.synchronize()
     for (mod, name), fn in real.items():
         monkeypatch.setattr(mod, name, fn)
@@ -481,7 +482,7 @@ def _dw_tolerance(x, dy, users, kh, kw, ph, pw):
 
 
 TC, NW, CC = dw_ops.TENSOR_CORE, dw_ops.NARROW, dw_ops.CUDA_CORE
-TF = dw_ops.TENSOR_CORE_F32
+TF, NF = dw_ops.TENSOR_CORE_F32, dw_ops.NARROW_F32
 F32 = torch.float32
 
 
@@ -491,12 +492,20 @@ F32 = torch.float32
     (3, 5, 70, 65, 4, 4, 3, 3, 1, 1, torch.bfloat16, TC),       # ragged channel tiles, 4x4 plane
     (2, 3, 17, 9, 5, 7, 2, 2, 0, 1, torch.float32, TF),         # even window, uneven pads
     (1, 2, 5, 6, 6, 9, 5, 5, 3, 1, torch.bfloat16, NW),         # pads that are not (k-1)/2
-    (2, 2, 8, 8, 3, 70, 1, 7, 0, 3, torch.float32, CC),         # rows wider than one column chunk
+    (2, 2, 8, 8, 3, 70, 1, 7, 0, 3, torch.float32, NF),         # rows of 70, a 1x7 window
     (8, 32, 64, 64, 1, 1, 3, 2, 2, 0, torch.bfloat16, TC),      # a 1x1 plane: only one tap is not zero
     (1, 64, 20, 20, 2, 2, 4, 6, 1, 2, torch.float32, TF),       # the batch split in many ranges
-    # float32 on the CUDA cores: fewer than 16 input channels
-    (2, 4, 3, 64, 32, 32, 3, 3, 1, 1, F32, CC),                 # the stem
-    (2, 3, 15, 20, 6, 6, 3, 3, 1, 1, F32, CC),                  # the widest input it takes
+    # the narrow float32 route: fewer than 16 input channels, exact bf16 pieces
+    (2, 4, 3, 64, 32, 32, 3, 3, 1, 1, F32, NF),                 # the stem
+    (2, 3, 15, 20, 6, 6, 3, 3, 1, 1, F32, NF),                  # the widest input it takes
+    (1, 4, 1, 8, 9, 7, 3, 7, 2, 5, F32, NF),                    # ci 1, kw 7, W = 7: 4-byte copies
+    (1, 3, 3, 8, 33, 31, 3, 3, 1, 1, F32, NF),                  # 33 x 31: a piece of 33 rows
+    (8, 32, 3, 64, 1, 1, 3, 3, 2, 0, F32, NF),                  # a 1x1 plane
+    (1, 64, 8, 20, 5, 7, 5, 5, 1, 3, F32, NF),                  # 64 ranges, kw 5, pads (1, 3)
+    (2, 3, 8, 24, 6, 70, 2, 2, 1, 0, F32, NF),                  # ci 8, W = 70, even window
+    (8, 32, 3, 64, 32, 32, 3, 3, 1, 1, F32, NF),                # 8 users x 32 at the stem
+    (2, 2, 15, 70, 7, 70, 7, 7, 3, 2, F32, NF),                 # 735 columns: 23 tiles; co 70
+    (3, 5, 15, 16, 4, 4, 2, 1, 0, 0, F32, NF),                  # ci 15, kw 1
     # float32 on the tensor cores (exact bf16 pieces) where it is weakest
     (3, 5, 70, 65, 4, 4, 3, 3, 1, 1, F32, TF),                  # ragged channel tiles, 4x4 plane
     (8, 4, 64, 64, 4, 4, 3, 3, 1, 1, F32, TF),                  # W = 4: 13 rows a chunk
@@ -549,6 +558,41 @@ def test_cuda_per_user_dw_f32_mixed_magnitudes(cuda_device):
     _check_dw(x, dy, users, 3, 3, 1, 1, TF)
 
 
+def test_cuda_per_user_dw_narrow_f32_mixed_magnitudes(cuda_device):
+    """The narrow float32 route at the stem's 3 channels with x of mixed sign
+    over 2^-20 .. 2^20 and every user's images in pairs whose dy nearly
+    cancel, as the tensor-core case above."""
+    users, batch, ci, co, h, w = 2, 6, 3, 64, 16, 16
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((users * batch, ci, h, w)) * 2.0 ** rng.uniform(-20, 20,
+                                                                           (users * batch, ci, h, w))
+    dy = rng.standard_normal((users * batch, co, h, w))
+    dy[1::2] = -dy[0::2] * (1.0 + 2.0 ** -6 * rng.standard_normal((users * batch // 2, co, h, w)))
+    x[1::2] = x[0::2]
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+    dy = torch.from_numpy(dy.astype(np.float32)).to(cuda_device)
+    _check_dw(x, dy, users, 3, 3, 1, 1, NF)
+
+
+def test_cuda_core_baseline_matches_plain_at_the_stem(cuda_device):
+    """per_user_dw.cu, the CUDA-core kernel that the float32 routes replaced
+    and that is timed beside them, through its C entry at the float32 stem
+    (8 users x 32, 3 -> 64 @32x32): within _dw_tolerance of the plain
+    version, the same bits twice, and no launch counted."""
+    from gqx_torch.scripts.dw_f32_probe import cuda_core_dw
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((256, 3, 32, 32)).astype(np.float32)).to(cuda_device)
+    dy = torch.from_numpy(rng.standard_normal((256, 64, 32, 32)).astype(np.float32)).to(cuda_device)
+    before = dw_ops.launches
+    got = cuda_core_dw(x, dy, 8, 3, 3, 1, 1)
+    want = dw_ops.per_user_dw_plain(x, dy, 8, 3, 3, 1, 1)
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= _dw_tolerance(x, dy, 8, 3, 3, 1, 1)).all())
+    assert torch.equal(got, cuda_core_dw(x, dy, 8, 3, 3, 1, 1))
+    assert dw_ops.launches == before
+
+
 def _check_dw(x, dy, users, kh, kw, ph, pw, route):
     """The kernel against its plain version (within _dw_tolerance), the
     library's weight gradient (1e-4) and itself (the same bits twice), on
@@ -597,6 +641,9 @@ def test_cuda_per_user_dw_refuses_bad_input(cuda_device, monkeypatch):
         dw_ops.per_user_dw(x, dy.cpu(), 2, 3, 3, 1, 1)
     with pytest.raises(NotImplementedError):
         dw_ops.per_user_dw(x, dy, 2, 1, 9, 0, 4)
+    with pytest.raises(NotImplementedError):   # rows whose staged pieces outgrow shared memory
+        dw_ops.per_user_dw(torch.randn(2, 15, 7, 300, device=cuda_device),
+                           torch.randn(2, 4, 7, 300, device=cuda_device), 1, 7, 7, 3, 3)
     monkeypatch.setattr(dw_ops, "per_user_dw_plain", None)   # a CUDA tensor never reaches it
     assert dw_ops.per_user_dw(x, dy, 2, 3, 3, 1, 1).shape == (2, 5, 3, 3, 3)
     xb = torch.randn(4, 16, 8, 8, device=cuda_device, dtype=torch.bfloat16)
@@ -605,8 +652,8 @@ def test_cuda_per_user_dw_refuses_bad_input(cuda_device, monkeypatch):
 
 def test_cuda_folded_step_takes_the_kernel_and_matches_the_loop(cuda_device):
     """A folded float32 ResNet-18 step on the card launches the per-user
-    weight gradient once per stride-1 3x3 conv (14: the stem's on the CUDA
-    cores, 13 on the float32 tensor-core route) and none in the loop; the
+    weight gradient once per stride-1 3x3 conv (14: the stem's on the narrow
+    float32 route, 13 on the float32 tensor-core route) and none in the loop; the
     two routes' gradients agree within 1e-3 of each leaf's norm (the card's
     convolution algorithms differ between batch 8 and batch 4)."""
     from gqx_torch.config import GQConfig
@@ -629,8 +676,8 @@ def test_cuda_folded_step_takes_the_kernel_and_matches_the_loop(cuda_device):
     before, by_route = dw_ops.launches, dict(dw_ops.launches_by_route)
     _, folded = folded_user_grads(model, plan, plan.names, x, y)
     assert dw_ops.launches == before + 14
-    # float32: the stem on the CUDA cores, the 13 others on exact bf16 pieces
-    assert dw_ops.launches_by_route == {**by_route, CC: by_route[CC] + 1, TF: by_route[TF] + 13}
+    # float32: the stem on the narrow route, the 13 others on the tensor-core route
+    assert dw_ops.launches_by_route == {**by_route, NF: by_route[NF] + 1, TF: by_route[TF] + 13}
     clear_batch_stats(model)
     _, looped = user_grads(model, plan.names, x, y)
     assert dw_ops.launches == before + 14

@@ -145,8 +145,9 @@ def test_batch_splits_fill_the_card_and_leave_no_range_empty(shape, want):
     (torch.bfloat16, 1, 7, "narrow"),          # the narrowest input and widest window
     (torch.float32, 64, 3, "tensor_core_f32"),   # float32 on exact bf16 pieces
     (torch.float32, 16, 7, "tensor_core_f32"),   # the narrowest input and widest window it takes
-    (torch.float32, 3, 3, "cuda_core"),          # the float32 stem keeps its FMAs
-    (torch.float32, 15, 3, "cuda_core"),         # the widest input they take
+    (torch.float32, 3, 3, "narrow_f32"),         # the float32 stem: (ci, tap) columns on pieces
+    (torch.float32, 15, 3, "narrow_f32"),        # the widest input it takes
+    (torch.float32, 1, 7, "narrow_f32"),         # the narrowest input and widest window
     (torch.float32, 64, 8, "cuda_core"),         # beyond MAX_KW: the CUDA-core wrapper raises
     (torch.bfloat16, 64, 8, "cuda_core"),
 ])
@@ -311,3 +312,111 @@ def test_narrow_splits_fill_the_card_and_leave_no_range_empty(shape, want):
     if shape == (8, 32, 3, 64, 32, 32, 3, 3):
         blocks = users * -(-(ci * kh * kw) // 32) * -(-co // 64) * splits
         assert blocks >= 132     # every multiprocessor of an H100 has a block
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 32, 3, 64, 32, 32, 3, 3), (32, 32)),     # the ResNet-50 stem: a piece is an image
+    ((2, 2, 3, 64, 32, 32, 3, 3), (32, 2)),
+    ((8, 32, 15, 64, 32, 32, 3, 3), (6, 6)),      # 15 channels: 6 rows fit 32 KB, 5 column tiles
+    ((2, 2, 15, 64, 32, 32, 3, 3), (6, 12)),
+    ((1, 2, 3, 8, 4, 300, 7, 7), (1, 8)),         # rows too wide for 32 KB: one row a piece
+    ((8, 32, 3, 64, 1, 1, 3, 3), (1, 32))])       # a 1x1 plane
+def test_narrow_f32_splits_fill_the_card_and_leave_no_range_empty(shape, want):
+    """The float32 narrow route's pieces and ranges: as the bf16 route's,
+    with each staged value's three bf16 pieces in 8 bytes where the bf16
+    route stages 2."""
+    users, batch, ci, co, h, w, kh, kw = shape
+    rows, splits = dw_ops.narrow_splits(*shape, 132, dw_ops.NARROW_F32)
+    assert (rows, splits) == want
+    pieces = batch * -(-h // rows)
+    per = -(-pieces // splits)
+    assert 1 <= splits <= pieces and (splits - 1) * per < pieces     # no range is empty
+    assert rows * w <= 1024 or rows == 1
+    assert 8 * ci * (rows + kh - 1) * (w + kw - 1) <= 32 * 1024 or rows == 1
+    if shape == (8, 32, 3, 64, 32, 32, 3, 3):
+        blocks = users * -(-(ci * kh * kw) // 32) * -(-co // 64) * splits
+        assert blocks >= 132     # every multiprocessor of an H100 has a block
+
+
+def _narrow_order(batch, h, w, rows, splits):
+    """The float32 narrow kernel's order of a user's B*H*W pixels (image-major)
+    as (ranges, 4 warps, k-steps, 16 slots), -1 where a slot holds no pixel:
+    range r takes its pieces (bands of ``rows`` rows) in order; in each,
+    warp i takes the chunks of 32 pixels at 32 i, 32 i + 128, ..., and k-step
+    s of a chunk c0 holds its 16 pixels c0 + 16 s .. c0 + 16 s + 15."""
+    bands = -(-h // rows)
+    pieces = batch * bands
+    per = -(-pieces // splits)
+    order = [[[] for _ in range(4)] for _ in range(splits)]
+    for q in range(pieces):
+        b, band = divmod(q, bands)
+        start = b * h * w + band * rows * w
+        npx = (min(h, (band + 1) * rows) - band * rows) * w
+        for warp in range(4):
+            for c0 in range(32 * warp, npx, 128):
+                for s in range(2):
+                    slots = [c0 + 16 * s + e for e in range(16)]
+                    order[q // per][warp].append([start + p if p < npx else -1 for p in slots])
+    steps = max(len(o) for r in order for o in r)
+    return torch.tensor([[o + [[-1] * 16] * (steps - len(o)) for o in r] for r in order])
+
+
+def _narrow_f32_sum(xs, ds, users, band_rows, splits, two_sets):
+    """The float32 narrow route's accumulation at a 3x3 window with pads
+    (1, 1), modelled: per warp and 16-slot k-step (``_narrow_order``), each
+    kept cross product's 16 exact products (mm, hl, lh, hm, mh, hh in that
+    order) added to its accumulator in one sum rounded toward zero, as the
+    tensor cores round; hh into one set and the five smaller ones into a
+    second, the two added at the end rounded to nearest (``two_sets``), or
+    all six into one set; then the warps' sums added in warp order and the
+    ranges' sums in range order, in float32."""
+    batch, h, w = xs[0].shape[0] // users, xs[0].shape[2], xs[0].shape[3]
+    idx = _narrow_order(batch, h, w, band_rows, splits)
+    idx = torch.where(idx < 0, batch * h * w, idx)          # the appended zero pixel
+    pad = lambda t: torch.nn.functional.pad(t, (0, 1))
+    cols = [pad(_columns(p, users))[..., idx] for p in xs]  # (U, N, R, 4, steps, 16)
+    rows = [pad(d.double().reshape(users, batch, d.shape[1], h * w).transpose(1, 2)
+                .reshape(users, d.shape[1], -1))[..., idx] for d in ds]
+    shape = (users, idx.shape[0], 4, rows[0].shape[1], cols[0].shape[1])
+    acc, rest = torch.zeros(shape), torch.zeros(shape)
+    for j in range(idx.shape[2]):
+        for a, b in ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0)):          # (dy, x) pieces
+            step = torch.einsum("uorwk,unrwk->urwon", rows[a][..., j, :], cols[b][..., j, :])
+            if two_sets and (a, b) != (0, 0):
+                rest = _round_toward_zero(rest.double() + step)
+            else:
+                acc = _round_toward_zero(acc.double() + step)
+    warps = acc + rest
+    total = None
+    for r in range(warps.shape[1]):
+        tile = warps[:, r, 0]
+        for i in range(1, 4):
+            tile = tile + warps[:, r, i]
+        total = tile if total is None else total + tile
+    return total
+
+
+@pytest.mark.parametrize("ci", [3, 1, 15])
+def test_narrow_f32_two_accumulator_sets_fit_the_tolerance_under_truncation(ci):
+    """The float32 narrow route's order of sums (``_narrow_f32_sum``: 16-slot
+    k-steps per warp's chunk, the warps in order, the ranges in order), with
+    the tensor cores' truncating additions modelled, at the stem's geometry
+    (ci -> 64 @32x32, 3x3, 2 users x 2 images, the route's band rows and
+    ranges): within the card tests' tolerance of the float64 sum, and on
+    average at most a quarter of the error of one set."""
+    from gqx_torch.ops.hsq_prep import split_bf16_3
+
+    users, batch, co, hw = 2, 2, 64, 32
+    rng = np.random.default_rng(ci)
+    x = torch.from_numpy(rng.standard_normal((users * batch, ci, hw, hw)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((users * batch, co, hw, hw)).astype(np.float32))
+    rows, splits = dw_ops.narrow_splits(users, batch, ci, co, hw, hw, 3, 3, 132,
+                                        dw_ops.NARROW_F32)
+    xs, ds = split_bf16_3(x), split_bf16_3(dy)
+    exact = _dw_f64(x, dy, users, 3, 3, 1, 1).reshape(users, co, ci * 9)
+    mag = _dw_f64(x.abs(), dy.abs(), users, 3, 3, 1, 1).reshape(users, co, ci * 9)
+    rel = {two: (_narrow_f32_sum(xs, ds, users, rows, splits, two).double() - exact).abs() / mag
+           for two in (True, False)}
+    n = batch * hw * hw
+    assert bool((rel[True] <= n ** 0.5 * 2.0 ** -23).all())
+    assert float(rel[True].mean()) <= float(rel[False].mean()) / 4
