@@ -62,7 +62,21 @@
 6. Steps the four other configurations of the canonical comparison (sgd,
    qsgd2bit, terngrad, sign), folded; the qsgd and sign aggregates are
    recomputed on the CPU like the others.  Takes one eval step.
-7. Prints the ``kernels`` JSON line, the card line and, last, the result
+7. [cli] Drives ``gqx_torch.cli.main`` in process with gqx's canonical
+   HSQ command line (ResNet-50, 8 users x 32, synthetic data, gqx's default
+   float32 compute): one epoch of 16 steps, then two epochs with --resume
+   on the same logdir, which must continue to step 32; the counters, set
+   to 0 before each run and read after, must show 13 float32 tensor-core
+   and 1 narrow float32 conv weight gradient launches and one of the
+   encode, the uniforms and the decode-mean a step; scalars.csv must hold
+   gqx's tags at gqx's global steps, all finite.  Then the verify skill's
+   FCN drive, which must end at >= 99% test accuracy.
+8. [bench] Runs ``gqx_torch.bench`` for hsq and sgd (bf16, 1 + 1 + 5
+   steps), then for hsq in float32: the families of each device-time
+   split must sum to its device total within 1%.  The float32 hsq ms per
+   step is printed beside the runner's of step 7 (the gap is the data
+   pipeline's cost).
+9. Prints the ``kernels`` JSON line, the card line and, last, the result
    line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -1405,6 +1419,143 @@ def comparison_phase(seed: int, steps: int):
         torch.cuda.empty_cache()
 
 
+# the [cli] drive: gqx's canonical HSQ command line (ResNet-50, 8 users x 32)
+# at gqx's default float32 compute, 16 steps on the synthetic set's 4,096
+# images, then two epochs with --resume; launches per step of each kernel
+CLI_FLAGS = ["--network", "resnet50", "--dataset", "synthetic", "--quantizer", "hsq",
+             "--c-dim", "16", "--k-bit", "8", "--n-bit", "6", "--num-users", "8",
+             "--batch-size", "32", "--save-model"]
+CLI_STEPS_PER_EPOCH = 16
+CLI_PER_STEP = {**DW_PER_STEP_F32, "hsq_encode": 1, "philox_uniform": 1, "hsq_decode_mean": 1}
+# the verify drive: FCN on the synthetic set, 32 steps; gqx ends at 100%
+FCN_FLAGS = ["--network", "fcn", "--dataset", "synthetic", "--quantizer", "hsq",
+             "--c-dim", "16", "--k-bit", "6", "--n-bit", "6", "--num-users", "8",
+             "--batch-size", "16", "--epochs", "1"]
+FCN_MIN_ACCURACY = 0.99
+
+
+def _drive(main, argv, label):
+    """Call an entry point's ``main(argv)`` in process with its standard
+    output shown prefixed and kept; returns (result, output)."""
+    import contextlib
+    import io
+
+    kept = io.StringIO()
+    with contextlib.redirect_stdout(kept):
+        result = main(argv)
+    text = kept.getvalue()
+    for line in text.splitlines():
+        log(f"[{label}] {line}")
+    return result, text
+
+
+def cli_phase(entries):
+    """``gqx_torch.cli.main`` in process: the canonical HSQ command line for
+    one epoch, then for two with --resume on the same logdir; the launch
+    counters set to 0 before each run and read after; scalars.csv at gqx's
+    tags and global steps; then the verify skill's FCN drive.  Returns the
+    runner's host ms per step (training loop, evals excluded)."""
+    import csv
+    import math
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from gqx_torch import cli
+
+    logdir = tempfile.mkdtemp(prefix="gqx_torch_cli_")
+    loop_ms = []
+    try:
+        for epochs, resume in ((1, False), (2, True)):
+            counters(reset=True)
+            argv = CLI_FLAGS + ["--epochs", str(epochs), "--logdir", logdir]
+            (state, accuracy), text = _drive(cli.main, argv + (["--resume"] if resume else []),
+                                             "cli")
+            launches = counters()
+            steps = CLI_STEPS_PER_EPOCH * epochs
+            if state.step != steps:
+                raise AssertionError(f"cli: the run ended at step {state.step}, expected {steps}")
+            ran = CLI_STEPS_PER_EPOCH
+            for kernel, count in launches.items():
+                want = ran * CLI_PER_STEP.get(kernel, 0)
+                if count != want:
+                    raise AssertionError(f"cli: {kernel} launched {count} times in {ran} "
+                                         f"steps, expected {want}")
+                entries[kernel]["launches"] += count
+                by_path = entries[kernel]["launches_by_path"]
+                by_path["cli"] = by_path.get("cli", 0) + count
+            loop_ms.append(float(re.search(r"training loop ([\d.]+) ms/step", text).group(1)))
+            log(f"[cli] epochs {epochs}{' resumed' if resume else ''}: step {state.step}, "
+                f"test accuracy {100 * accuracy:.2f}%, launches {launches}")
+        with open(os.path.join(logdir, "scalars.csv")) as f:
+            rows = list(csv.DictReader(f))
+        got = {}
+        for r in rows:
+            got.setdefault(r["tag"], []).append(int(r["step"]))
+            if not math.isfinite(float(r["value"])):
+                raise AssertionError(f"cli: non-finite {r['tag']} at step {r['step']}")
+        last = CLI_STEPS_PER_EPOCH - 1
+        want = {"wire_bytes_per_user_step": [0, 0], "compression_ratio_vs_fp32": [0, 0],
+                "loss": [last, CLI_STEPS_PER_EPOCH + last],
+                "accuracy(%)": [last, CLI_STEPS_PER_EPOCH + last]}
+        if got != want:
+            raise AssertionError(f"cli: scalars.csv holds {got}, expected {want}")
+        ckpts = sorted(f for f in os.listdir(logdir) if f.startswith("gqx_state_"))
+        log(f"[cli] scalars.csv {got}; checkpoints {ckpts}")
+
+        counters(reset=True)
+        fcn_dir = os.path.join(logdir, "fcn")
+        (_, accuracy), _ = _drive(cli.main, FCN_FLAGS + ["--logdir", fcn_dir], "cli fcn")
+        launches = counters()
+        for kernel, count in launches.items():
+            if count:
+                entries[kernel]["launches"] += count
+                entries[kernel]["launches_by_path"]["cli_fcn"] = count
+        if not accuracy >= FCN_MIN_ACCURACY:
+            raise AssertionError(f"cli fcn: test accuracy {accuracy}, expected >= "
+                                 f"{FCN_MIN_ACCURACY}")
+        log(f"[cli fcn] test accuracy {100 * accuracy:.2f}%, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    return loop_ms
+
+
+def bench_phase(entries, runner_ms):
+    """``gqx_torch.bench.main`` in process for hsq and sgd (bf16, 1 + 1 + 5
+    steps) and for hsq in float32, the [cli] drive's configuration: the
+    families of each device-time split, without what it could not
+    attribute, must sum to its device total within 1%; the float32 hsq
+    ms per step is printed beside the runner's."""
+    from gqx_torch import bench
+
+    counters(reset=True)
+    details, _ = _drive(bench.main, ["--quant", "hsq,sgd", "--warmup", "1", "--steps", "5"],
+                        "bench")
+    launches = counters()
+    for kernel in ("hsq_encode", "philox_uniform", "hsq_decode_mean", "per_user_dw_tc",
+                   "per_user_dw_narrow"):
+        if launches[kernel] < 1:
+            raise AssertionError(f"bench: {kernel} was not launched")
+    for kernel, count in launches.items():
+        if count:
+            entries[kernel]["launches"] += count
+            entries[kernel]["launches_by_path"]["bench"] = count
+    f32, _ = _drive(bench.main, ["--quant", "hsq", "--dtype", "float32", "--warmup", "1",
+                                 "--steps", "5"], "bench float32")
+    for q, row in list(details["configs"].items()) + [("hsq float32", f32["configs"]["hsq"])]:
+        total, split = row["device_ms_per_step"], row["device_split_ms"]
+        attributed = sum(v for k, v in split.items() if k != bench.UNATTRIBUTED)
+        if abs(attributed - total) > 0.01 * total:
+            raise AssertionError(f"bench {q}: the families {split} sum to {attributed} ms, "
+                                 f"the device total is {total} ms")
+    bench_ms = f32["configs"]["hsq"]["ms_per_step"]
+    log(f"[bench] resnet50 8x32 hsq float32: runner {runner_ms} ms/step (training loop, "
+        f"synthetic data through the Pipeline) against bench {bench_ms:.2f} ms/step (one "
+        f"batch resident on the card)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1484,6 +1635,10 @@ def main():
             raise AssertionError(f"{e['name']} was launched on no path")
 
     comparison_phase(args.seed, args.steps)
+    torch.cuda.empty_cache()
+    runner_ms = cli_phase(entries)
+    torch.cuda.empty_cache()
+    bench_phase(entries, runner_ms)
 
     order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
              "hsq_rows_encode_tc", "hsq_rows_encode_wide", "hsq_rows_decode", "per_user_dw",

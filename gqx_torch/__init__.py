@@ -6,9 +6,11 @@ each module here has a counterpart of the same name there.  It imports
 torch, numpy and scipy only; the cross-package parity tests are the one
 place both packages meet.
 
-Entry points (``train.create_train_state`` / ``train.make_train_step``) run
-on the CUDA device unless the caller passes ``device="cpu"``; on the CPU
-every kernel wrapper computes its plain PyTorch version instead.
+Entry points (``python -m gqx_torch.cli``, ``python -m gqx_torch.bench``,
+``runner.run_training``, ``train.create_train_state`` /
+``train.make_train_step``) run on the CUDA device unless the caller asks
+for the CPU (``--platform cpu``, ``device="cpu"``); on the CPU every kernel
+wrapper computes its plain PyTorch version instead.
 """
 
 import torch

@@ -43,7 +43,6 @@ _PORT_ONLY = {
     "scan_blocks": (False,),
     "backend": ("sim",),
     "wire": ("logical",),
-    "profile_dir": (None,),
     "hsq_passes": (1, 2),
     "unit_dtype": ("auto", "float32", "bfloat16"),
     "compute_dtype": ("float32", "bfloat16"),
@@ -102,6 +101,8 @@ class GQConfig:
     mesh_axis: str = "users"
     eval_batch_count: Optional[int] = None
     dataset_kwargs: Optional[dict] = None
+    # the runner writes a torch.profiler trace of profile_steps steps from
+    # step 2 here (gqx: an xprof trace)
     profile_dir: Optional[str] = None
     profile_steps: int = 5
 

@@ -22,15 +22,19 @@ _NOT_PORTED = ("vgg11", "vgg13", "vgg16", "vgg19", "dense", "cnn")
 
 
 def create_model(name: str, num_classes: int, dtype: str = "float32",
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, image_shape=None):
     """Build ``name`` on the CPU with torch's default init drawn from
-    ``generator``; move it with ``.to(device)``."""
+    ``generator``; move it with ``.to(device)``.  ``image_shape`` (H, W, C)
+    sizes the layers that gqx's modules size from their first input (the
+    FCN's input, the ResNets' stem and classifier); None keeps each model's
+    own default (the FCN 28x28x1, the ResNets 32x32x3)."""
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"network {name!r} is not ported yet (ROADMAP Queue 1, item 11)")
     if name not in NETWORKS:
         raise ValueError(f"unknown network {name!r}")
     d = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-    model = NETWORKS[name](num_classes=num_classes, dtype=d)
+    kw = {} if image_shape is None else {"image_shape": tuple(image_shape)}
+    model = NETWORKS[name](num_classes=num_classes, dtype=d, **kw)
     reset_parameters(model, generator)
     return model

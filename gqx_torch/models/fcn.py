@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -12,8 +14,10 @@ from gqx_torch.models.common import Dense, nhwc_flatten
 
 class FCN(nn.Module):
     def __init__(self, num_classes: int = 10, hidden: int = 256, d_in: int = 784,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, image_shape=None):
         super().__init__()
+        if image_shape is not None:   # gqx's Dense takes its width from the input
+            d_in = math.prod(image_shape)
         self.dtype = dtype
         self.fc1 = Dense(d_in, hidden, dtype, flax_path="TorchDense_0/Dense_0")
         self.fc2 = Dense(hidden, num_classes, dtype, flax_path="TorchDense_1/Dense_0")

@@ -65,12 +65,22 @@ class Bottleneck(nn.Module):
         return F.relu(out + x)
 
 
+def _pooled(size: int) -> int:
+    """Side of the map that reaches the classifier: stages 2-4 at stride 2
+    with SAME padding, then the 4x4 average pool."""
+    for _ in range(3):
+        size = -(-size // 2)
+    return size // 4
+
+
 class ResNet(nn.Module):
     def __init__(self, block: Type[nn.Module], stage_sizes: Sequence[int],
-                 num_classes: int = 10, dtype: torch.dtype = torch.float32):
+                 num_classes: int = 10, dtype: torch.dtype = torch.float32,
+                 image_shape=(32, 32, 3)):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = Conv2d(3, 64, 3, 1, dtype, flax_path="TorchConv_0/Conv_0")
+        h, w, c = image_shape
+        self.conv1 = Conv2d(c, 64, 3, 1, dtype, flax_path="TorchConv_0/Conv_0")
         self.bn1 = BatchNorm(64, flax_path="BatchNorm_0/BatchNorm_0")
         cin, index = 64, 0
         for s, (filters, blocks) in enumerate(zip((64, 128, 256, 512), stage_sizes)):
@@ -83,7 +93,9 @@ class ResNet(nn.Module):
                 cin = filters * block.expansion
                 index += 1
             setattr(self, f"layer{s + 1}", layer)
-        self.linear = Dense(cin, num_classes, dtype, flax_path="TorchDense_0/Dense_0")
+        # gqx's classifier takes its width from the pooled map
+        self.linear = Dense(cin * _pooled(h) * _pooled(w), num_classes, dtype,
+                            flax_path="TorchDense_0/Dense_0")
 
     def forward(self, x):
         x = x.to(self.dtype)
@@ -93,21 +105,21 @@ class ResNet(nn.Module):
         return self.linear(nhwc_flatten(x)).to(torch.float32)
 
 
-def ResNet18(num_classes=10, dtype=torch.float32):
-    return ResNet(BasicBlock, (2, 2, 2, 2), num_classes, dtype)
+def ResNet18(num_classes=10, dtype=torch.float32, **kw):
+    return ResNet(BasicBlock, (2, 2, 2, 2), num_classes, dtype, **kw)
 
 
-def ResNet34(num_classes=10, dtype=torch.float32):
-    return ResNet(BasicBlock, (3, 4, 6, 3), num_classes, dtype)
+def ResNet34(num_classes=10, dtype=torch.float32, **kw):
+    return ResNet(BasicBlock, (3, 4, 6, 3), num_classes, dtype, **kw)
 
 
-def ResNet50(num_classes=10, dtype=torch.float32):
-    return ResNet(Bottleneck, (3, 4, 6, 3), num_classes, dtype)
+def ResNet50(num_classes=10, dtype=torch.float32, **kw):
+    return ResNet(Bottleneck, (3, 4, 6, 3), num_classes, dtype, **kw)
 
 
-def ResNet101(num_classes=10, dtype=torch.float32):
-    return ResNet(Bottleneck, (3, 4, 23, 3), num_classes, dtype)
+def ResNet101(num_classes=10, dtype=torch.float32, **kw):
+    return ResNet(Bottleneck, (3, 4, 23, 3), num_classes, dtype, **kw)
 
 
-def ResNet152(num_classes=10, dtype=torch.float32):
-    return ResNet(Bottleneck, (3, 8, 36, 3), num_classes, dtype)
+def ResNet152(num_classes=10, dtype=torch.float32, **kw):
+    return ResNet(Bottleneck, (3, 8, 36, 3), num_classes, dtype, **kw)
