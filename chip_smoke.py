@@ -9,9 +9,10 @@
    source, all at once) and prints the build time.
 3. Holds each kernel against its plain PyTorch version at the shapes the
    training paths give it (the ResNet-50 HSQ unit, 8 users): the flat
-   encode (on the tensor cores; at P1's, P2's and P3's shapes, timed by
-   device time with CUDA events beside it), the fused decode-mean, the
-   uniforms and the per-user decode at dim 16 / K 256, the row-major
+   encode (on the tensor cores; at P1's, P2's and P3's shapes and at P9's
+   unpadded float32 unit at passes=2, timed by device time with CUDA
+   events beside it), the fused decode-mean, the uniforms and the per-user
+   decode at dim 16 / K 256 (the decode at P9's unit too), the row-major
    encode (both routes, bf16 and float32 rows: dim <= 32 on the tensor
    cores at P4's dim 8 / K 1024; dims above 32 on the wide tensor-core
    route at P6's shape, dim 256 / K 256, with hsq_rows_encode.cu, the
@@ -28,7 +29,7 @@
    exists, the PyTorch call computing the same function (for the conv
    weight gradient, one grouped call for all users, with the per-user
    calls beside it).
-4. Runs seven training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute
+4. Runs eight training paths (CIFAR ResNet-50, 8 users x 32, bf16 compute
    but for P7, hsq_passes=1, random weights and data from --seed), each for
    one warm-up step and --steps steps with the launch counters set to 0
    just before and read just after:
@@ -44,6 +45,10 @@
      P8  P1 with HSQ c_dim 256 / k_bit 8 and passthrough_threshold 2048
          (one row-major unit of 91,904 rows of 256, K 256: the wide route;
          the stem passed through uncompressed);
+     P9  Residual c_dim 16 / k_bit 8 / n_bit 6: HSQ at passes=2 on an
+         unpadded float32 unit (the flat encode, the uniforms, the per-user
+         decode), then PVQ on the residual (its samples' uniforms, the
+         row-major decode);
    and P6, HSQ c_dim 256 / k_bit 8 on the gradient unit of P1's plan through
    the compressor's entry points (compress_batch, decode_mean; the encode
    on the wide route), its launches counted the same way.
@@ -51,17 +56,21 @@
    gradient per folded step: in bf16 13 tensor-core and 1 narrow launches,
    in float32 13 float32 tensor-core and 1 narrow float32 launches; the
    row-major encode by route).  The aggregate of one more step of each of
-   P1-P4, P7 and P8 (and P2's new
+   P1-P4 and P7-P9 (and P2's new
    error-feedback state) is recomputed on the CPU through the plain
    versions from the same gradients, state and seed, and compared; so is
-   P6's decode-mean.
+   P6's decode-mean.  Where a unit samples codes (PVQ, Maurey), every
+   sample that lands in another slot than on the CPU must lie at a CDF
+   boundary.
 5. Compares folded and looped per-user gradients from the same weights and
    batch on the card: ResNet-18 float32 and ResNet-50 bf16, with the conv
    weight gradient's launches of each folded run counted (the float32 run:
    13 float32 tensor-core and 1 narrow float32 launches).
 6. Steps the four other configurations of the canonical comparison (sgd,
-   qsgd2bit, terngrad, sign), folded; the qsgd and sign aggregates are
-   recomputed on the CPU like the others.  Takes one eval step.
+   qsgd2bit, terngrad, sign) and the other three compressors (topk, maurey,
+   pvq), folded, their launches counted as the paths' are; the qsgd, sign,
+   topk (exactly), maurey and pvq aggregates are recomputed on the CPU like
+   the others.  Takes one eval step.
 7. [cli] Drives ``gqx_torch.cli.main`` in process with gqx's canonical
    HSQ command line (ResNet-50, 8 users x 32, synthetic data, gqx's default
    float32 compute): one epoch of 16 steps, then two epochs with --resume
@@ -76,8 +85,13 @@
    split must sum to its device total within 1%.  The float32 hsq ms per
    step is printed beside the runner's of step 7 (the gap is the data
    pipeline's cost).
-9. Prints the ``kernels`` JSON line, the card line and, last, the result
-   line {"ok": true, "device": {...}}.
+9. [wire] Packs one user's signature of one ResNet-50 unit of each of the
+   eight compressors (P1's HSQ unit, P9's Residual unit) on the card, for
+   each of 8 users: the words must equal the CPU's pack of the same
+   signature, the unpack must give it back bit for bit, and the payload's
+   bytes must be ``wire_bytes``; times pack and unpack per user and step.
+10. Prints the wall time, the ``kernels`` JSON line, the card line and,
+   last, the result line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; without a CUDA device it exits at once.
@@ -86,6 +100,7 @@ line; without a CUDA device it exits at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -175,6 +190,13 @@ PATHS = {
     # narrow K7 kernel, 13 + 1 a step); one HSQ unit of 91,904 rows of 256
     "P8": (dict(c_dim=256, k_bit=8, passthrough_threshold=2048),
            dict(hsq_rows_encode_wide=1, philox_uniform=1, hsq_rows_decode=1)),
+    # Residual: one float32 unit of 23,498,432 elements, not padded (only
+    # HSQ units are); the HSQ stage at passes=2 (the encode, the uniforms of
+    # its norms, the per-user decode of the residual), PVQ on the residual
+    # (the uniforms of its samples and of its norms), then the mean of the
+    # stages' per-user decodes (the flat decode again, the row-major decode)
+    "P9": (dict(quantizer="residual", c_dim=16, k_bit=8, n_bit=6),
+           dict(hsq_encode=1, philox_uniform=3, hsq_decode=2, hsq_rows_decode=1)),
 }
 # P6, the wide row-major encode (dim 256 is outside the flat layout and above
 # the tensor-core encode's 32) through the compressor's entry points on the
@@ -202,13 +224,21 @@ DW_PER_STEP_F32 = {"per_user_dw_narrow": 0, "per_user_dw_tc": 0, "per_user_dw": 
 DW_GEOMETRIES_F32 = ((3, 64, 32, 1), (64, 64, 32, 4), (128, 128, 16, 3),
                      (256, 256, 8, 3), (512, 512, 4, 3))
 
-# the other configurations of the canonical comparison
+# the other configurations of the canonical comparison, then the other
+# compressors of gqx's registry, with their launches per unit and step as
+# PATHS has them (topk and maurey units are one leaf each)
 COMPARISON = {
-    "sgd": dict(quantizer="sgd"),
-    "qsgd2bit": dict(quantizer="qsgd", c_dim=128, n_bit=2),
-    "terngrad": dict(quantizer="terngrad"),
-    "sign": dict(quantizer="sign"),
+    "sgd": (dict(quantizer="sgd"), dict()),
+    "qsgd2bit": (dict(quantizer="qsgd", c_dim=128, n_bit=2), dict(philox_uniform=1)),
+    "terngrad": (dict(quantizer="terngrad"), dict(philox_uniform=1)),
+    "sign": (dict(quantizer="sign"), dict()),
+    "topk": (dict(quantizer="topk"), dict()),
+    "maurey": (dict(quantizer="maurey", c_dim=16, k_bit=8, n_bit=6), dict(philox_uniform=1)),
+    "pvq": (dict(quantizer="pvq", c_dim=16, k_bit=8, n_bit=6),
+            dict(philox_uniform=2, hsq_rows_decode=1)),
 }
+# units whose aggregate is compared subvector by subvector
+SUBVECTOR_UNITS = ("HSQCompressor", "ProbabilisticVectorCompressor", "ResidualCompressor")
 
 
 def canonical_config(quantizer: str = "hsq", **extra):
@@ -258,8 +288,8 @@ def check_encode(x, comp, passes, name):
     return u_k, c_k, float(err.max())
 
 
-def hsq_unit(cfg, seed: int):
-    """The HSQ unit of ``cfg``'s ResNet-50 plan."""
+def resnet50_plan(cfg, seed: int):
+    """``cfg``'s unit plan of CIFAR ResNet-50."""
     import torch
 
     from gqx_torch.convert import leaf_paths
@@ -267,9 +297,13 @@ def hsq_unit(cfg, seed: int):
     from gqx_torch.parallel.packing import plan_units
 
     model = create_model("resnet50", 10, "bfloat16", torch.Generator().manual_seed(seed))
-    plan = plan_units([(n, tuple(p.shape)) for n, p in model.named_parameters()],
+    return plan_units([(n, tuple(p.shape)) for n, p in model.named_parameters()],
                       leaf_paths(model), cfg)
-    unit = plan.units[0]
+
+
+def hsq_unit(cfg, seed: int):
+    """The HSQ unit of ``cfg``'s ResNet-50 plan."""
+    unit = resnet50_plan(cfg, seed).units[0]
     comp = unit.compressor
     log(f"[unit] ResNet-50 HSQ unit (c_dim {cfg.c_dim}, k_bit {cfg.k_bit}): "
         f"{len(unit.sizes)} leaves, {unit.size} elements (pad {unit.pad}), "
@@ -318,21 +352,25 @@ def encode_timing(label, x, comp, passes):
     return rec
 
 
-def encode_phase(comp, x32, xb):
+def encode_phase(comp, x32, xb, comp9, x9):
     """K1, the tensor-core encode, against its plain version and timed at the
     shapes the paths give it: P1 (bf16, passes=1, every user at once), P2
     (the float32 error-feedback units, passes=1), P3 (one user per hop: bf16
-    at hop 0, float32 after), and gqx's strict-parity passes=2 on float32.
-    Returns (u, codes) at P1's shape and the ``kernels`` entry, whose times
-    are P1's."""
+    at hop 0, float32 after), gqx's strict-parity passes=2 on P1's float32
+    unit, and P9's HSQ stage (``comp9``: passes=2 on the unpadded float32
+    unit ``x9``).  Returns (u, codes) at P1's and at P9's shape and the
+    ``kernels`` entry, whose times are P1's."""
     u_k, c_k, err = check_encode(xb, comp, 1, "hsq_encode P1 bf16 passes=1")
     shapes = [encode_timing("P1", xb, comp, 1)]
     for label, x, passes in (("P2", x32, 1), ("P3 hop 0", xb[0], 1),
-                             ("P3 later hops", x32[0], 1), ("float32 passes=2", x32, 2)):
+                             ("P3 later hops", x32[0], 1), ("P1 float32 passes=2", x32, 2)):
         _, _, e = check_encode(x, comp, passes, f"hsq_encode {label} {str(x.dtype)[6:]} "
                                                 f"passes={passes}")
         err = max(err, e)
         shapes.append(encode_timing(label, x, comp, passes))
+    u9, c9, e = check_encode(x9, comp9, 2, "hsq_encode P9 float32 passes=2")
+    err = max(err, e)
+    shapes.append(encode_timing("P9 float32 passes=2", x9, comp9, 2))
     p1 = shapes[0]
     entry = dict(
         name="hsq_encode", route="cuda", source="gqx_torch/csrc/hsq_encode.cu",
@@ -340,7 +378,7 @@ def encode_phase(comp, x32, xb):
         replaces="gqx/ops/pallas_hsq4.py:87", max_abs_err=err, ms=p1["ms"],
         events_ms=p1["events_ms"], plain_ms=p1["plain_ms"], bound_ms=p1["bound_ms"],
         bound_by=p1["bound_by"], library_ms=None, shapes=shapes)
-    return u_k, c_k, entry
+    return (u_k, c_k), (u9, c9), entry
 
 
 def kernel_phase(seed: int):
@@ -362,8 +400,18 @@ def kernel_phase(seed: int):
     cb = comp.codebook(dev)
     entries = {}
 
-    # K1 at the shapes of the main paths, then gqx's strict-parity passes=2
-    u_k, c_k, entries["hsq_encode"] = encode_phase(comp, x32, xb)
+    # P9's HSQ stage: passes=2 on a float32 unit that is not padded (only HSQ
+    # units are), so its last 65,536-element block is cut short
+    unit9 = max(resnet50_plan(canonical_config(**PATHS["P9"][0]), seed).units,
+                key=lambda u: u.size)
+    comp9 = unit9.compressor.stages[0]
+    x9 = unit_input(unit9, users, seed + 1)
+    log(f"[unit] ResNet-50 Residual unit (P9): {unit9.size} elements (pad {unit9.pad}, "
+        f"{unit9.size % 65536} past the last 65,536 block), HSQ stage passes={comp9.passes}, "
+        f"M={comp9.M}, flat layout: {comp9.flat_ok}")
+
+    # K1 at the shapes of the main paths, gqx's strict-parity passes=2, P9's
+    (u_k, c_k), (u9, c9), entries["hsq_encode"] = encode_phase(comp, x32, xb, comp9, x9)
 
     # K3: the norm quantizer's uniforms for every user of the unit
     n = users * m
@@ -446,7 +494,25 @@ def kernel_phase(seed: int):
                     f"plain, max abs err {float((d_k - d_p).abs().max())}")
             err4 = max(err4, float((d_k - d_p).abs().max()))
             del d_k, d_p
-    log("[hsq_decode] bit-equal to plain at U=8 and U=1, uint8 and int32 codes, passes 1 and 2")
+    # and P9's: passes=2 on the unpadded unit, the signature its encode made
+    norm9 = comp9.norm_compressor
+    u9_q = norm9.decompress(norm9.compress(u9, torch.Generator().manual_seed(seed))).contiguous()
+    cb9 = comp9.codebook(dev)
+    for c, v in ((c9, u9_q), (c9[0], u9_q[0]), (c9.to(torch.int32), u9_q)):
+        d_k = hsq_ops.hsq_decode_flat(c, v, cb9, comp9.dim, 2)
+        d_p = hsq_ops.hsq_decode_plain(c, v, cb9, comp9.dim, 2)
+        torch.cuda.synchronize()
+        if d_k.shape != c.shape[:-1] + (unit9.size,) or not torch.equal(d_k, d_p):
+            raise AssertionError(
+                f"hsq_decode P9 {tuple(c.shape)} {c.dtype}: not bit-equal to plain, max abs "
+                f"err {float((d_k - d_p).abs().max())}")
+        del d_k, d_p
+    log("[hsq_decode] bit-equal to plain at U=8 and U=1, uint8 and int32 codes, passes 1 and 2; "
+        f"at P9's unpadded unit of {unit9.size}, passes=2, U=8 and U=1, uint8 and int32 codes")
+    p9_ms = device_ms(lambda: hsq_ops.hsq_decode_flat(c9, u9_q, cb9, comp9.dim, 2), 20)
+    log(f"[hsq_decode P9] {users} users x {comp9.M} subvectors, passes=2: {p9_ms:.4f} ms "
+        "device time")
+    del x9, u9, c9, u9_q
     one_ms = cuda_ms(lambda: hsq_ops.hsq_decode_flat(c_k[0], u_q[0], cb, dim, 1), 20)
     log(f"[hsq_decode U=1] {one_ms:.4f} ms")
     codes_col = c_k.reshape(-1, 1).long()
@@ -1075,6 +1141,25 @@ def counters(reset=False):
             "per_user_dw_narrow_f32": by_route[dw_ops.NARROW_F32]}
 
 
+def check_launches(name, cfg, plan, steps, launches, per_unit, entries):
+    """``steps`` steps' launches against what the code implies: per
+    compressed unit and step as ``per_unit`` says ("U": once per user), the
+    conv weight gradient per folded step by dtype, none of any other
+    kernel; each count joins its kernel's entry under ``name``."""
+    units = sum(1 for u in plan.units if type(u.compressor).__name__ != "IdenticalCompressor")
+    dw_per_step = DW_PER_STEP_F32 if cfg.compute_dtype == "float32" else DW_PER_STEP
+    for kernel, count in launches.items():
+        n = per_unit.get(kernel, 0)
+        want = steps * units * (cfg.num_users if n == "U" else n)
+        if kernel in dw_per_step:
+            want = steps * dw_per_step[kernel] if cfg.folded_users else 0
+        if count != want:
+            raise AssertionError(f"{name}: {kernel} launched {count} times in "
+                                 f"{steps} steps, expected {want}")
+        entries[kernel]["launches"] += count
+        entries[kernel]["launches_by_path"][name] = count
+
+
 def per_user_grads(cfg, state, plan, x, y):
     """The per-user gradients as ``cfg``'s train step computes them."""
     from gqx_torch.train import folded_user_grads, user_grads
@@ -1174,16 +1259,193 @@ def _subvectors_off(got, want, dim: int) -> int:
     return int((err > 1e-5 * want.abs().reshape(-1, dim).amax(1)).sum())
 
 
+def _samplers(plan):
+    """(unit index, object, method) of each sampler of the plan's units:
+    Maurey's ``sample``, PVQ's ``encode`` (Residual's second stage)."""
+    out = []
+    for ui, u in enumerate(plan.units):
+        comp = u.compressor
+        kind = type(comp).__name__
+        if kind == "MaureySparsificationCompressor":
+            out.append((ui, comp, "sample"))
+        elif kind == "ProbabilisticVectorCompressor":
+            out.append((ui, comp, "encode"))
+        elif kind == "ResidualCompressor":
+            out.append((ui, comp.stages[1], "encode"))
+    return out
+
+
+@contextlib.contextmanager
+def recorded_samples(plan):
+    """Record, while the block runs, each sampler's (input, uniforms,
+    output) and the signature of the unit that holds it:
+    ({unit index: (vecs, r, out)}, {unit index: signature})."""
+    calls, sigs = {}, {}
+    hooked = _samplers(plan)
+    for ui, obj, method in hooked:
+        def record(vecs, r, ui=ui, fn=getattr(obj, method)):
+            out = fn(vecs, r)
+            calls[ui] = (vecs, r, out)
+            return out
+
+        def record_sig(vecs, generator=None, ui=ui, fn=plan.units[ui].compressor.compress_batch):
+            sigs[ui] = fn(vecs, generator)
+            return sigs[ui]
+        setattr(obj, method, record)
+        plan.units[ui].compressor.compress_batch = record_sig
+    try:
+        yield calls, sigs
+    finally:
+        for ui, obj, method in hooked:
+            delattr(obj, method)
+            del plan.units[ui].compressor.compress_batch
+
+
+def _rows_recoded(comp, card, cpu):
+    """(U, M) bool: the users' subvectors whose code or norm level differs
+    between the two signatures of a PVQ or Residual unit."""
+    stages = [(card["stage0"], cpu["stage0"]), (card["stage1"], cpu["stage1"])] \
+        if type(comp).__name__ == "ResidualCompressor" else [(card, cpu)]
+    rows = None
+    for a, b in stages:
+        diff = a["codes"].cpu() != b["codes"]
+        if isinstance(b["u"], dict):
+            diff |= a["u"]["l"].cpu() != b["u"]["l"]
+        rows = diff if rows is None else rows | diff
+    return rows
+
+
+def samples_off(name, plan, card, cpu):
+    """Samples whose code on the card differs from the CPU's, from the same
+    uniforms (``card``, ``cpu``: the sampler calls ``recorded_samples``
+    kept): each must have r (PVQ: r - eps) within tol of the float64 CDF
+    between its two codes, tol the float32 sum's error bound over K terms
+    on both devices for PVQ, 1e-9 for Maurey's float64 CDF.  A PVQ sample
+    whose input row differs (the Residual's HSQ stage chose another code)
+    is counted apart."""
+    import torch
+
+    from gqx_torch.compress.sparse import maurey_cdf
+
+    tally = {}
+    for ui, obj, method in _samplers(plan):
+        (v_g, r_g, out_g), (v_c, r_c, out_c) = card[ui], cpu[ui]
+        if not torch.equal(r_g.cpu(), r_c):
+            raise AssertionError(f"{name}: unit {ui}'s uniforms differ between card and CPU")
+        pvq = method == "encode"
+        got = (out_g[1] if pvq else out_g["codes"]).cpu().long().reshape(-1)
+        want = (out_c[1] if pvq else out_c["codes"]).long().reshape(-1)
+        r = r_c.double().reshape(-1)
+        moved = torch.nonzero(got != want)[:, 0]
+        other_input = 0
+        if pvq:
+            eps, tol = 1e-5, 2 * obj.K * 2.0 ** -24
+            rows_c = v_c.reshape(-1, obj.dim)
+            rows_g = v_g.reshape(-1, obj.dim)[moved.to(v_g.device)].cpu()
+            same = (rows_g == rows_c[moved]).all(1)
+            other_input = int((~same).sum())
+            moved = moved[same]
+            p = rows_c[moved].double() @ obj.c_dagger.double().t()
+            cdf = torch.cumsum(p.abs() / p.abs().sum(1, keepdim=True), dim=1)
+        else:
+            eps, tol = 0.0, 1e-9
+            users = sorted({int(s) // obj.k for s in moved})
+            cdfs = {u: maurey_cdf(v_c.reshape(v_c.shape[0], -1)[u:u + 1])[1][0] for u in users}
+        for j, s in enumerate(moved.tolist()):
+            lo, hi = sorted((int(got[s]), int(want[s])))
+            row = cdf[j] if pvq else cdfs[s // obj.k]
+            if float((r[s] - eps - row[lo:hi]).abs().min()) > tol:
+                raise AssertionError(f"{name}: unit {ui}, sample {s}: codes {int(got[s])} on the "
+                                     f"card, {int(want[s])} on the CPU, r {float(r[s])} not at "
+                                     "a CDF boundary")
+        t = tally.setdefault("PVQ" if pvq else "Maurey", [0, 0, 0, 0])
+        t[0] += len(moved)
+        t[1] += got.numel()
+        t[2] += other_input
+        t[3] += 1
+    for kind, (n, total, other, units) in tally.items():
+        log(f"[samples {name}] {kind}, {units} unit(s): {n + other} of {total} samples land in "
+            f"another slot than on the CPU, {n} at a CDF boundary from the same input row, "
+            f"{other} from a row the HSQ stage coded otherwise")
+
+
+def maurey_sample_f32(comp, vecs, r):
+    """Maurey's codes and signs from gqx's float32 CDF (gqx/compress/
+    sparse.py: l1, |v| / l1 and their cumulative sum all in float32), the
+    arithmetic the port's float64 ``maurey_cdf`` departs from."""
+    import torch
+
+    flat = vecs.reshape(vecs.shape[0], -1)
+    a = flat.abs().to(torch.float32)
+    l1 = a.sum(1)
+    safe = torch.where(l1 == 0.0, torch.ones_like(l1), l1)
+    cdf = torch.cumsum(a / safe[:, None], dim=1)
+    codes = torch.searchsorted(cdf, r).clamp(0, comp.size - 1)
+    return codes, torch.sign(flat.gather(1, codes))
+
+
+def maurey_precision(name, plan, card, cpu):
+    """The cost of Maurey's float64 CDF against gqx's float32 one, on this
+    step's Maurey units from the inputs and uniforms the samplers were given
+    (``recorded_samples``): the samples that land in another slot on the card
+    than on the CPU under float32, and the device time of all the units'
+    samplers under each precision."""
+    units = [(ui, obj) for ui, obj, method in _samplers(plan) if method == "sample"]
+    if not units:
+        return
+    moved = total = 0
+    for ui, obj in units:
+        (v_g, r_g, _), (v_c, r_c, _) = card[ui], cpu[ui]
+        got = maurey_sample_f32(obj, v_g, r_g)[0].cpu()
+        want = maurey_sample_f32(obj, v_c, r_c)[0]
+        moved += int((got != want).sum())
+        total += want.numel()
+    f64_ms = device_ms(lambda: [obj.sample(*card[ui][:2]) for ui, obj in units], 3)
+    f32_ms = device_ms(lambda: [maurey_sample_f32(obj, *card[ui][:2]) for ui, obj in units], 3)
+    log(f"[samples {name}] Maurey under gqx's float32 CDF: {moved} of {total} samples land in "
+        f"another slot than on the CPU; samplers of the {len(units)} units a step: float64 "
+        f"{f64_ms:.3f} ms device time, float32 {f32_ms:.3f} ms")
+
+
+def sampled_unit_reference(name, unit, got, want, card_sig, cpu_sig):
+    """A PVQ or Residual unit's mean on the card against the CPU's: every
+    subvector that differs by more than 1e-5 of its largest magnitude must
+    have a user whose code or norm level differs between the two (a sample
+    at a CDF boundary; a level whose stochastic rounding met a u that
+    differs by float32 roundings), or differ by no more than 1e-5 of the
+    users' largest decoded magnitude there (the terms of a mean that
+    cancels); codes and levels may differ in at most 1e-3 of the users'
+    subvectors."""
+    comp = unit.compressor
+    dim = comp.stages[0].dim if type(comp).__name__ == "ResidualCompressor" else comp.dim
+    recoded = _rows_recoded(comp, card_sig, cpu_sig)
+    err = (got - want).abs().reshape(-1, dim).amax(1)
+    off = err > 1e-5 * want.abs().reshape(-1, dim).amax(1)
+    terms = comp.decompress_batch(cpu_sig).abs().reshape(recoded.shape[0], -1, dim).amax(2).amax(0)
+    explained = recoded.any(0)
+    unexplained = off & ~explained & (err > 1e-5 * terms)
+    log(f"[reference {name}] aggregate, {type(comp).__name__} unit of {unit.size}: "
+        f"{int(off.sum())} of {off.numel()} subvectors differ from the CPU plain path, "
+        f"{int((off & explained).sum())} where a user's code or level differs "
+        f"({int(recoded.sum())} of {recoded.numel()} users' subvectors recoded), "
+        f"{int((off & ~explained).sum())} within 1e-5 of the users' terms")
+    if int(unexplained.sum()) or int(recoded.sum()) > 1e-3 * recoded.numel():
+        raise AssertionError(f"{name}: {int(unexplained.sum())} subvectors differ unexplained, "
+                             f"{int(recoded.sum())} users' subvectors recoded")
+
+
 def aggregate_reference(name, cfg, state, plan, step, batch, seed, ms_step):
     """One more step's gradients aggregated on the card, stage-timed (host
     clock, synchronised per stage), and, from the same gradients, the same
     aggregator state and the same seed, on the CPU, where every wrapper
     computes its plain version.  HSQ units (aggregate and new error-feedback
     state) may differ only on a few subvectors (near-tie codes, level
-    boundaries, at most 1e-3 of them); QSGD and sign units only on a few
-    elements (at most 1e-5 of them: the same exactly rounded operations on
-    both devices, but for the order of the users' sum); identity units must
-    agree to 1e-6 of the summed magnitudes."""
+    boundaries: at most 1e-3 of them); PVQ and Residual units as
+    ``sampled_unit_reference`` says; QSGD, sign and Maurey units only on a
+    few elements (at most 1e-5 of them: the same exactly rounded
+    operations on both devices, but for the order of the users' sum);
+    top-k and identity units must agree exactly and to 1e-6 of the summed
+    magnitudes.  The samplers' codes are held to ``samples_off``."""
     import torch
 
     from gqx_torch.parallel.aggregate import AggState, make_aggregator
@@ -1210,10 +1472,15 @@ def aggregate_reference(name, cfg, state, plan, step, batch, seed, ms_step):
     _, grads = timed("user_fwd_bwd", lambda: per_user_grads(cfg, state, plan, x, y))
     cpu_state = AggState(to_cpu(state.agg_state.ef), to_cpu(state.agg_state.server_ef))
     cpu_grads = {n: g.cpu() for n, g in grads.items()}
-    agg = timed("aggregate", lambda: aggregator(
-        grads, state.agg_state, scale, torch.Generator().manual_seed(seed)))
+    with recorded_samples(plan) as (card, card_sigs):
+        agg = timed("aggregate", lambda: aggregator(
+            grads, state.agg_state, scale, torch.Generator().manual_seed(seed)))
     log(f"[breakdown {name}] ms (host clock, synchronised per stage): {json.dumps(times)}")
-    want = aggregator(cpu_grads, cpu_state, scale, torch.Generator().manual_seed(seed))
+    with recorded_samples(plan) as (cpu, cpu_sigs):
+        want = aggregator(cpu_grads, cpu_state, scale, torch.Generator().manual_seed(seed))
+    samples_off(name, plan, card, cpu)
+    maurey_precision(name, plan, card, cpu)
+    del card, cpu
 
     groups = [("aggregate", f32_plan.pack(agg), f32_plan.pack(want))]
     if state.agg_state.ef is not None:
@@ -1221,30 +1488,39 @@ def aggregate_reference(name, cfg, state, plan, step, batch, seed, ms_step):
     if state.agg_state.server_ef is not None:
         groups.append(("server error feedback", state.agg_state.server_ef, cpu_state.server_ef))
     for label, got_units, want_units in groups:
-        for u, got, ref, g in zip(plan.units, got_units, want_units, f32_plan.pack(cpu_grads)):
+        tally = {}
+        for ui, (u, got, ref, g) in enumerate(zip(plan.units, got_units, want_units,
+                                                  f32_plan.pack(cpu_grads))):
             comp = u.compressor
+            kind = type(comp).__name__
             got, ref = got.cpu().float(), ref.float()
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{name} {label}: non-finite values")
-            if type(comp).__name__ == "HSQCompressor":
-                bad, total = _subvectors_off(got, ref, comp.dim), got.numel() // comp.dim
-                log(f"[reference {name}] {label}, HSQ unit of {u.size}: {bad} of {total} "
-                    "subvectors differ from the CPU plain path")
-                if bad > 1e-3 * total:
-                    raise AssertionError(f"{name} {label}: {bad} subvectors differ")
-            elif type(comp).__name__ != "IdenticalCompressor":
-                bad = int(((got - ref).abs() > 1e-6 * ref.abs().max()).sum())
-                log(f"[reference {name}] {label}, {type(comp).__name__} unit of {u.size}: "
-                    f"{bad} of {got.numel()} elements differ from the CPU plain path")
-                if bad > 1e-5 * got.numel():
-                    raise AssertionError(f"{name} {label}: {bad} elements differ")
+            if ui in cpu_sigs and label == "aggregate" and kind in SUBVECTOR_UNITS:
+                sampled_unit_reference(name, u, got, ref, card_sigs[ui], cpu_sigs[ui])
+                continue
+            if kind in SUBVECTOR_UNITS:
+                dim = comp.stages[0].dim if kind == "ResidualCompressor" else comp.dim
+                bad, total = _subvectors_off(got, ref, dim), got.numel() // dim
+                limit, what = 1e-3 * total, "subvectors"
+            elif kind in ("TopKCompressor", "IdenticalCompressor"):
+                tol = 0.0 if kind == "TopKCompressor" else 1e-6 * g.float().abs().sum(0) + 1e-30
+                bad, total = int(((got - ref).abs() > tol).sum()), got.numel()
+                limit, what = 0, "elements"
             else:
-                err = (got - ref).abs()
-                tol = 1e-6 * g.float().abs().sum(0) + 1e-30
-                log(f"[reference {name}] {label}, identity unit of {u.size}: "
-                    f"max |gpu - cpu| {float(err.max()):.3e}")
-                if not bool((err <= tol).all()):
-                    raise AssertionError(f"{name} {label}: identity unit differs from the CPU path")
+                bad, total = int(((got - ref).abs() > 1e-6 * ref.abs().max()).sum()), got.numel()
+                limit, what = 1e-5 * total, "elements"
+            if bad > limit:
+                raise AssertionError(f"{name} {label}: {kind} unit of {u.size}: {bad} of "
+                                     f"{total} {what} differ from the CPU plain path")
+            t = tally.setdefault((kind, what), [0, 0, 0, 0])
+            t[0] += bad
+            t[1] += total
+            t[2] += 1
+            t[3] += u.size
+        for (kind, what), (bad, total, units, size) in tally.items():
+            log(f"[reference {name}] {label}, {units} {kind} unit(s) of {size} elements: "
+                f"{bad} of {total} {what} differ from the CPU plain path")
     device_profile(state, step, batch, ms_step)
 
 
@@ -1401,21 +1677,117 @@ def folded_vs_looped(seed: int):
     return launches
 
 
-def comparison_phase(seed: int, steps: int):
-    """1 + ``steps`` folded steps of each other configuration of the
-    canonical comparison; the qsgd and sign aggregates against the CPU plain
-    path."""
+def comparison_phase(seed: int, steps: int, entries):
+    """1 + ``steps`` folded steps of each configuration of COMPARISON, the
+    launch counters set to 0 just before the ``steps`` and read just after;
+    the aggregates but sgd's and terngrad's against the CPU plain path (those
+    two: one step's device time)."""
     import torch
 
-    for name, extra in COMPARISON.items():
+    for name, (extra, per_unit) in COMPARISON.items():
         cfg = canonical_config(**extra)
-        ms, losses, state, plan, step, batch, _ = run_steps(cfg, seed, steps)
+        ms, losses, state, plan, step, batch, launches = run_steps(cfg, seed, steps, counters)
         log(f"[slice {name}] resnet50 8x32 {extra} bf16, folded: {ms:.2f} ms/step over "
             f"{steps} steps, losses {[round(v, 4) for v in losses]}, "
             f"wire {plan.wire_bytes()} B/user/step, {len(plan.units)} units")
-        if name in ("qsgd2bit", "sign"):
+        log(f"[slice {name}] launches: { {k: v for k, v in launches.items() if v} }")
+        check_launches(name, cfg, plan, steps, launches, per_unit, entries)
+        if name not in ("sgd", "terngrad"):
             aggregate_reference(name, cfg, state, plan, step, batch, seed, ms)
+        else:
+            device_profile(state, step, batch, ms)
         del state, step, batch
+        torch.cuda.empty_cache()
+
+
+# the [wire] phase: the configuration of each of the eight compressors whose
+# largest ResNet-50 unit is packed (sgd's: its largest leaf)
+WIRE = {
+    "sgd": COMPARISON["sgd"][0],
+    "sign": COMPARISON["sign"][0],
+    "qsgd2bit": COMPARISON["qsgd2bit"][0],
+    "hsq P1": dict(),
+    "pvq": COMPARISON["pvq"][0],
+    "residual P9": PATHS["P9"][0],
+    "topk": COMPARISON["topk"][0],
+    "maurey": COMPARISON["maurey"][0],
+}
+
+
+def _user(sig, i):
+    if isinstance(sig, dict):
+        return {k: _user(v, i) for k, v in sig.items()}
+    return sig[i]
+
+
+def _to_cpu(sig):
+    if isinstance(sig, dict):
+        return {k: _to_cpu(v) for k, v in sig.items()}
+    return sig.cpu()
+
+
+def _bit_equal(got, want) -> bool:
+    import torch
+
+    if isinstance(want, dict):
+        return set(got) == set(want) and all(_bit_equal(got[k], want[k]) for k in want)
+    got, want = got.cpu(), want.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.is_floating_point():
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return torch.equal(got, want)
+
+
+def wire_phase(seed: int):
+    """[wire]: for each configuration of WIRE, 8 users' signatures of the
+    plan's largest unit, compressed on the card from gradient-like input;
+    each user's signature packed on the card must give the CPU's words for
+    the same signature, unpack on the card to it bit for bit, and fill
+    exactly ``wire_bytes``.  Pack and unpack of one user's signature are
+    timed on the device (torch.profiler) and by CUDA events."""
+    import torch
+
+    from gqx_torch.ops.wire import pack_signature, unpack_signature, wire_bytes
+
+    for name, extra in WIRE.items():
+        cfg = canonical_config(**extra)
+        plan = resnet50_plan(cfg, seed)
+        ui = max(range(len(plan.units)), key=lambda i: plan.units[i].size)
+        unit, dtype = plan.units[ui], plan.unit_dtypes[ui]
+        comp = unit.compressor
+        x = unit_input(unit, cfg.num_users, seed + 9)
+        sig = comp.compress_batch(x if dtype is None else x.to(dtype),
+                                  torch.Generator().manual_seed(seed))
+        want_bytes = wire_bytes(comp)
+        for i in range(cfg.num_users):
+            one = _user(sig, i)
+            wire = pack_signature(comp, one)
+            cpu = pack_signature(comp, _to_cpu(one))
+            if set(wire) != set(cpu) or not all(torch.equal(wire[k].cpu(), cpu[k]) for k in cpu):
+                raise AssertionError(f"wire {name}: user {i}'s words on the card differ from "
+                                     "the CPU's")
+            if sum(4 * w.numel() for w in wire.values()) != want_bytes:
+                raise AssertionError(f"wire {name}: the payload is not wire_bytes "
+                                     f"{want_bytes}")
+            if not _bit_equal(unpack_signature(comp, wire), one):
+                raise AssertionError(f"wire {name}: user {i}'s unpack differs from the "
+                                     "signature")
+        one = _user(sig, 0)
+        wire = pack_signature(comp, one)
+        # the identity's payload is a view of the float32 bits: no kernel
+        views = type(comp).__name__ == "IdenticalCompressor"
+        times = [0.0 if views else device_ms(lambda: pack_signature(comp, one), 5),
+                 cuda_ms(lambda: pack_signature(comp, one), 5),
+                 0.0 if views else device_ms(lambda: unpack_signature(comp, wire), 5),
+                 cuda_ms(lambda: unpack_signature(comp, wire), 5)]
+        log(f"[wire] {name}: {type(comp).__name__} unit of {unit.size} elements, "
+            f"{want_bytes} B per user ({4 * unit.size / want_bytes:.2f}x fp32), "
+            f"{len(wire)} fields; {cfg.num_users} users packed on the card bit-equal to the "
+            f"CPU, unpacked bit-exact; per user and step: pack {times[0]:.4f} ms device, "
+            f"{times[1]:.4f} ms events; unpack {times[2]:.4f} ms device, {times[3]:.4f} ms "
+            "events")
+        del sig, x
         torch.cuda.empty_cache()
 
 
@@ -1561,6 +1933,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
+    start = time.perf_counter()
 
     import torch
 
@@ -1590,24 +1963,14 @@ def main():
         cfg = canonical_config(**extra)
         steps = args.steps if cfg.folded_users else 1
         ms, losses, state, plan, step, batch, launches = run_steps(cfg, args.seed, steps, counters)
-        log(f"[slice {name}] resnet50 8x32 hsq {extra or 'canonical'} {cfg.compute_dtype}: "
+        log(f"[slice {name}] resnet50 8x32 {cfg.quantizer} {extra or 'canonical'} "
+            f"{cfg.compute_dtype}: "
             f"{ms:.2f} ms/step over {steps} steps, losses {[round(v, 4) for v in losses]}, "
             f"wire {plan.wire_bytes()} B/user/step")
         log(f"[slice {name}] launches: {launches}")
         log(f"[slice {name}] conv weight gradient launches by route over {steps} steps: "
             f"{ {k: v for k, v in launches.items() if k.startswith('per_user_dw')} }")
-        hsq_units = sum(1 for u in plan.units if type(u.compressor).__name__ == "HSQCompressor")
-        dw_per_step = DW_PER_STEP_F32 if cfg.compute_dtype == "float32" else DW_PER_STEP
-        for kernel, count in launches.items():
-            n = per_step.get(kernel, 0)
-            want = steps * hsq_units * (cfg.num_users if n == "U" else n)
-            if kernel in dw_per_step:
-                want = steps * dw_per_step[kernel] if cfg.folded_users else 0
-            if count != want:
-                raise AssertionError(f"{name}: {kernel} launched {count} times in "
-                                     f"{steps} steps, expected {want}")
-            entries[kernel]["launches"] += count
-            entries[kernel]["launches_by_path"][name] = count
+        check_launches(name, cfg, plan, steps, launches, per_step, entries)
         if name in ("P1", "P7"):
             breakdown_and_reference(cfg, state, plan, step, batch, args.seed, ms)
             if name == "P1":
@@ -1634,15 +1997,18 @@ def main():
         if e["launches"] < 1 and "baseline_of" not in e:
             raise AssertionError(f"{e['name']} was launched on no path")
 
-    comparison_phase(args.seed, args.steps)
+    comparison_phase(args.seed, args.steps, entries)
     torch.cuda.empty_cache()
     runner_ms = cli_phase(entries)
     torch.cuda.empty_cache()
     bench_phase(entries, runner_ms)
+    torch.cuda.empty_cache()
+    wire_phase(args.seed)
 
     order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
              "hsq_rows_encode_tc", "hsq_rows_encode_wide", "hsq_rows_decode", "per_user_dw",
              "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32", "per_user_dw_narrow_f32")
+    log(f"[time] chip_smoke.py: {time.perf_counter() - start:.1f} s wall, the build included")
     print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

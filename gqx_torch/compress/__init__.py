@@ -1,8 +1,8 @@
 """Compressor registry (counterpart of ``gqx/compress/__init__.py``).
 
-The port has the five compressors of the canonical comparison (``hsq``,
-``sgd``, ``qsgd``, ``terngrad``, ``sign``); the other names of gqx's
-registry raise until their port lands (ROADMAP Queue 1, item 7).
+Every name of gqx's registry builds the port's counterpart of gqx's class:
+``sgd``, ``sign``, ``qsgd``, ``terngrad``, ``hsq``, ``pvq``, ``residual``,
+``topk`` and ``maurey``.
 """
 
 from __future__ import annotations
@@ -16,15 +16,22 @@ from gqx_torch.compress.scalar import (  # noqa: F401
     QSGDCompressor,
     SignSGDCompressor,
 )
-from gqx_torch.compress.vq import HSQCompressor  # noqa: F401
-
-_NOT_PORTED = ("topk", "pvq", "residual", "maurey")
+from gqx_torch.compress.sparse import (  # noqa: F401
+    MaureySparsificationCompressor,
+    TopKCompressor,
+)
+from gqx_torch.compress.vq import (  # noqa: F401
+    HSQCompressor,
+    ProbabilisticVectorCompressor,
+    ResidualCompressor,
+)
 
 
 def make_compressor(name: str, size: int, shape: Tuple[int, ...], config,
                     norm_segment_sizes=None) -> Compressor:
     """One compressor from a GQConfig-like object; ``norm_segment_sizes``
-    segments HSQ's norm range per original leaf of a grouped unit."""
+    segments the VQ families' norm range per original leaf of a grouped
+    unit."""
     random = bool(getattr(config, "random", True))
     if name == "sgd":
         return IdenticalCompressor(size, shape)
@@ -41,7 +48,21 @@ def make_compressor(name: str, size: int, shape: Tuple[int, ...], config,
             norm_segment_sizes=norm_segment_sizes,
             passes=int(getattr(config, "hsq_passes", 2)),
         )
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet (ROADMAP Queue 1, item 7)")
+    if name == "pvq":
+        return ProbabilisticVectorCompressor(
+            size, shape, config.c_dim, config.k_bit, config.n_bit, random,
+            norm_segment_sizes=norm_segment_sizes,
+        )
+    if name == "residual":
+        # gqx's registry passes no ``passes`` here: its HSQ stage runs at 2
+        return ResidualCompressor(
+            size, shape, config.c_dim, config.k_bit, config.n_bit, random,
+            norm_segment_sizes=norm_segment_sizes,
+        )
+    if name == "topk":
+        return TopKCompressor(size, shape, config.cr)
+    if name == "maurey":
+        return MaureySparsificationCompressor(
+            size, shape, config.c_dim, config.k_bit, config.n_bit
+        )
     raise ValueError(f"unknown compressor {name!r}")

@@ -27,10 +27,11 @@ class Compressor:
 
     # -- core API -----------------------------------------------------------
     def compress(self, vec: torch.Tensor, generator: Optional[torch.Generator] = None) -> Sig:
-        raise NotImplementedError
+        """One vector: the batched call over a users axis of one."""
+        return _index0(self.compress_batch(vec[None], generator))
 
     def decompress(self, sig: Sig) -> torch.Tensor:
-        raise NotImplementedError
+        return self.decompress_batch(_add_axis(sig))[0]
 
     def roundtrip(self, vec: torch.Tensor, generator=None) -> torch.Tensor:
         """compress -> decompress (the value the aggregators use)."""
@@ -51,12 +52,41 @@ class Compressor:
     def decode_mean(self, sig: Sig) -> torch.Tensor:
         """Mean over users of the decompressed signatures — the PS server
         reduce (reference ps_quantizer.py:48)."""
-        dec = self.decompress_batch(sig)
-        return dec.sum(0) / dec.shape[0]
+        return self.users_mean(self.decompress_batch(sig))
+
+    #: add the users one by one in ``users_mean`` (see there)
+    in_order_mean = False
+
+    def users_mean(self, dec: torch.Tensor) -> torch.Tensor:
+        """Mean over the leading users axis of decoded values, as the server
+        reduce and the error-feedback round trip take it.  One reduction,
+        in the library's order of additions, unless ``in_order_mean``: then
+        user 0 + user 1 + ... in order, times float32(1/U), the same
+        additions on every device, for the compressors whose mean must
+        agree across devices to the bit (top-k) or whose decodes, large and
+        of either sign, cancel in it (PVQ, Residual)."""
+        if not self.in_order_mean:
+            return dec.sum(0) / dec.shape[0]
+        out = dec[0]
+        for i in range(1, dec.shape[0]):
+            out = out + dec[i]
+        return out * (1.0 / dec.shape[0])
 
     @property
     def wire_bits(self) -> int:
         raise NotImplementedError
+
+
+def _index0(sig):
+    if isinstance(sig, dict):
+        return {k: _index0(v) for k, v in sig.items()}
+    return sig[0]
+
+
+def _add_axis(sig):
+    if isinstance(sig, dict):
+        return {k: _add_axis(v) for k, v in sig.items()}
+    return sig[None]
 
 
 def subvector_dim(size: int, c_dim: int, max_tries: int = 10) -> int:

@@ -75,7 +75,7 @@ def ps_aggregate(plan: UnitPlan, grads: Dict[str, torch.Tensor], state: AggState
             dec = comp.roundtrip_batch(e, generator)
             # the plain mean of the users' decoded values: the fused
             # decode-mean rounds its weights after summing and is not this
-            mean = dec.sum(0) / dec.shape[0]
+            mean = comp.users_mean(dec)
             e.sub_(dec)                                   # the new error
         else:
             mean = comp.decode_mean(comp.compress_batch(g, generator))

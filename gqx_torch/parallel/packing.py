@@ -29,9 +29,7 @@ import torch
 
 from gqx_torch.compress import IdenticalCompressor, make_compressor
 from gqx_torch.compress.api import Compressor, subvector_dim
-from gqx_torch.compress.scalar import (ProbabilisticScalarCompressor, QSGDCompressor,
-                                       SignSGDCompressor)
-from gqx_torch.compress.vq import HSQCompressor
+from gqx_torch.ops.wire import wire_bytes
 
 HSQ_ALIGN = 65536  # 512 x 128: the TPU kernels' tile, kept for an identical plan
 
@@ -131,32 +129,9 @@ class UnitPlan:
         return [u.compressor for u in self.units]
 
     def wire_bytes(self) -> int:
-        """Packed payload bytes per user and step, as gqx/ops/wire.py
-        counts them (uint32 words, incl. padding)."""
+        """Packed payload bytes per user and step (``gqx_torch.ops.wire``:
+        whole 32-bit words, as gqx counts them)."""
         return sum(wire_bytes(u.compressor) for u in self.units)
-
-
-def _packed_words(n_values: int, bits: int) -> int:
-    return -(-n_values * bits // 32)
-
-
-def wire_bytes(comp: Compressor) -> int:
-    if isinstance(comp, IdenticalCompressor):
-        return 4 * comp.size
-    if isinstance(comp, SignSGDCompressor):
-        return 4 * _packed_words(comp.size, 2)    # {-1, 0, +1}: 2 bits per coordinate
-    if isinstance(comp, QSGDCompressor):
-        # n_bit plus one overflow bit under stochastic rounding (the level may reach s)
-        level_bits = comp.n_bit + (1 if comp.random else 0)
-        return 4 * (comp.M + _packed_words(comp.size, 1) + _packed_words(comp.size, level_bits))
-    if isinstance(comp, ProbabilisticScalarCompressor):
-        # n_bit plus one overflow bit under stochastic rounding
-        level_bits = comp.n_bit + (1 if comp.random else 0)
-        return 4 * (2 * comp.n_segments + _packed_words(comp.size, level_bits))
-    if isinstance(comp, HSQCompressor):
-        u_bytes = wire_bytes(comp.norm_compressor) if comp.compressed_norm else 4 * comp.M
-        return 4 * _packed_words(comp.M, comp.code_bits) + u_bytes
-    raise TypeError(type(comp))
 
 
 def _path_key(path: str):

@@ -24,6 +24,8 @@ from gqx_torch.compress import make_compressor
 from gqx_torch.compress.api import stochastic_increment, subvector_dim
 from gqx_torch.compress.scalar import (ProbabilisticScalarCompressor, QSGDCompressor,
                                        SignSGDCompressor)
+from gqx_torch.compress.sparse import MaureySparsificationCompressor, TopKCompressor
+from gqx_torch.compress.vq import ProbabilisticVectorCompressor, ResidualCompressor
 from gqx_torch.config import GQConfig
 from gqx_torch.ops import rand as rand_ops
 from gqx_torch.ops.hsq_prep import bf16_exact_codebook
@@ -219,11 +221,12 @@ def test_hsq_accounting_matches_gqx(monkeypatch):
     assert pt.code_dtype == torch.uint8
 
 
-def test_unported_compressors_raise():
+def test_make_compressor_builds_each_name():
     cfg = GQConfig(quantizer="qsgd", c_dim=16, n_bit=2)
-    for name in ("topk", "pvq", "residual", "maurey"):
-        with pytest.raises(NotImplementedError):
-            make_compressor(name, 4096, (4096,), cfg)
+    for name, kind in (("topk", TopKCompressor), ("pvq", ProbabilisticVectorCompressor),
+                       ("residual", ResidualCompressor),
+                       ("maurey", MaureySparsificationCompressor)):
+        assert type(make_compressor(name, 4096, (4096,), cfg)) is kind
     for name, kind in (("qsgd", QSGDCompressor), ("terngrad", QSGDCompressor),
                        ("sign", SignSGDCompressor)):
         assert type(make_compressor(name, 4096, (4096,), cfg)) is kind

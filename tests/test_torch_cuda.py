@@ -11,11 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from gqx_torch.compress.sparse import TopKCompressor
 from gqx_torch.ops import dw as dw_ops
 from gqx_torch.ops import hsq as hsq_ops
 from gqx_torch.ops import hsq_rows
 from gqx_torch.ops import rand as rand_ops
 from gqx_torch.ops.hsq_prep import bf16_exact_codebook
+from gqx_torch.ops.pack import pack_uint, unpack_uint
 from gqx_torch.scripts.rows_wide_probe import cuda_core_encode
 
 pytestmark = pytest.mark.cuda
@@ -687,3 +689,37 @@ def test_cuda_folded_step_takes_the_kernel_and_matches_the_loop(cuda_device):
         assert float((folded[n] - want).norm()) <= 1e-3 * float(want.norm()), n
     loss = make_train_step(cfg, plan)(state, x, y, 0.1, 5e-4, torch.Generator().manual_seed(1))
     assert dw_ops.launches == before + 28 and bool(torch.isfinite(loss))
+
+
+# -- the wire format and top-k ------------------------------------------------------
+
+@pytest.mark.parametrize("bits", [1, 2, 6, 7, 8, 13, 16, 32])
+def test_cuda_pack_matches_cpu(cuda_device, bits):
+    """The card packs the same 32-bit words as the CPU (int64 shifts masked to
+    32 bits on both), and unpacks them bit-exactly; lengths on and off a
+    period of the stream, up to a ResNet-50 HSQ unit's subvectors."""
+    rng = np.random.default_rng(bits)
+    for n in (1, 333, 1_470_464):
+        vals = torch.from_numpy(rng.integers(0, 2 ** bits, n, dtype=np.int64))
+        words = pack_uint(vals.to(cuda_device), bits)
+        assert words.dtype == torch.int32 and words.device.type == "cuda"
+        assert torch.equal(words.cpu(), pack_uint(vals, bits))
+        assert torch.equal(unpack_uint(words, bits, n).cpu(), vals)
+
+
+@pytest.mark.parametrize("kind", ["integers", "bf16"])
+def test_cuda_topk_ties_match_cpu(cuda_device, kind):
+    """top-k on the card keeps the CPU's indices among equal |v| (the lowest
+    index first), so its values and its mean are the CPU's exactly."""
+    rng = np.random.default_rng(3)
+    shape = (8, 1 << 20)
+    if kind == "integers":
+        x = torch.from_numpy(rng.integers(-4, 5, shape).astype(np.float32))
+    else:
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16().float()
+    comp = TopKCompressor(shape[1], (shape[1],), 256)
+    got = comp.compress_batch(x.to(cuda_device))
+    want = comp.compress_batch(x)
+    assert torch.equal(got["indices"].cpu(), want["indices"])
+    assert torch.equal(got["values"].cpu(), want["values"])
+    assert torch.equal(comp.decode_mean(got).cpu(), comp.decode_mean(want))
