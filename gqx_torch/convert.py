@@ -8,6 +8,7 @@ gqx's ``params`` and ``batch_stats`` (nested dicts of numpy arrays) into the
 port's ``state_dict``:
 
   conv kernel  HWIO (kh, kw, cin, cout) -> OIHW (cout, cin, kh, kw)
+  conv bias    (cout,)                  -> (cout,), where the conv has one
   dense kernel (in, out)                -> (out, in)
   BN scale / bias / mean / var          -> weight / bias / running_mean / running_var
 """
@@ -23,7 +24,7 @@ from torch import nn
 from gqx_torch.models.common import BatchNorm, Conv2d, Dense
 
 _LEAF = {
-    Conv2d: {"weight": "kernel"},
+    Conv2d: {"weight": "kernel", "bias": "bias"},
     Dense: {"weight": "kernel", "bias": "bias"},
     BatchNorm: {"weight": "scale", "bias": "bias",
                 "running_mean": "mean", "running_var": "var"},
@@ -40,6 +41,8 @@ def _walk(model: nn.Module):
             base = prefixes[parent]
             prefixes[name] = f"{base}/{seg}" if base and seg else (base or seg)
         for attr, leaf in _LEAF.get(type(mod), {}).items():
+            if getattr(mod, attr) is None:     # a conv without a bias
+                continue
             full = f"{name}.{attr}" if name else attr
             yield full, f"{prefixes[name]}/{leaf}", mod, attr
 

@@ -1,14 +1,17 @@
-"""Model registry (counterpart of ``gqx/models/__init__.py``).  This slice
-ports the ResNets and the FCN; the other names raise until their port
-lands (ROADMAP Queue 1, item 11)."""
+"""Model registry (counterpart of ``gqx/models/__init__.py``): gqx's twelve
+networks under gqx's names."""
 
 from __future__ import annotations
 
 import torch
 
+from gqx_torch.models.cnn import CNN
 from gqx_torch.models.common import reset_parameters
+from gqx_torch.models.densenet import (DenseNet, DenseNet121, DenseNet161,  # noqa: F401
+                                       DenseNet169, DenseNet201, densenet_cifar)
 from gqx_torch.models.fcn import FCN
 from gqx_torch.models.resnet import ResNet18, ResNet34, ResNet50, ResNet101, ResNet152
+from gqx_torch.models.vgg import vgg11, vgg13, vgg16, vgg19
 
 NETWORKS = {
     "resnet18": ResNet18,
@@ -16,9 +19,14 @@ NETWORKS = {
     "resnet50": ResNet50,
     "resnet101": ResNet101,
     "resnet152": ResNet152,
+    "vgg11": vgg11,
+    "vgg13": vgg13,
+    "vgg16": vgg16,
+    "vgg19": vgg19,
+    "dense": densenet_cifar,
     "fcn": FCN,
+    "cnn": CNN,
 }
-_NOT_PORTED = ("vgg11", "vgg13", "vgg16", "vgg19", "dense", "cnn")
 
 
 def create_model(name: str, num_classes: int, dtype: str = "float32",
@@ -26,15 +34,16 @@ def create_model(name: str, num_classes: int, dtype: str = "float32",
     """Build ``name`` on the CPU with torch's default init drawn from
     ``generator``; move it with ``.to(device)``.  ``image_shape`` (H, W, C)
     sizes the layers that gqx's modules size from their first input (the
-    FCN's input, the ResNets' stem and classifier); None keeps each model's
-    own default (the FCN 28x28x1, the ResNets 32x32x3)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"network {name!r} is not ported yet (ROADMAP Queue 1, item 11)")
+    FCN's input, the stems and the classifiers); None keeps each model's
+    own default (the FCN and the CNN 28x28x1, the others 32x32x3), which
+    the model keeps as ``image_shape``.  As in
+    gqx, the CNN is built without a compute dtype: it is float32 whatever
+    ``dtype`` says."""
     if name not in NETWORKS:
         raise ValueError(f"unknown network {name!r}")
-    d = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     kw = {} if image_shape is None else {"image_shape": tuple(image_shape)}
-    model = NETWORKS[name](num_classes=num_classes, dtype=d, **kw)
+    if name != "cnn":
+        kw["dtype"] = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    model = NETWORKS[name](num_classes=num_classes, **kw)
     reset_parameters(model, generator)
     return model

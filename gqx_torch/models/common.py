@@ -47,32 +47,48 @@ def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 class Conv2d(nn.Module):
-    """Bias-free conv with "SAME" padding and torch's default init."""
+    """Conv with torch's default init, "SAME" (XLA's) or "VALID" padding and,
+    with ``bias``, a bias added after the convolution in the compute dtype,
+    as gqx adds it (a bf16 result is rounded before the bias and again
+    after it).  The bias has no ghost: in the folded step its gradient is
+    the folded total, as a ``Dense`` bias's is."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, flax_path: str = ""):
+                 dtype: torch.dtype = torch.float32, flax_path: str = "",
+                 bias: bool = False, padding: str = "SAME"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.stride = stride
+        self.padding = padding
         self.dtype = dtype
         self.flax_path = flax_path
 
     def reset_parameters(self, generator: Optional[torch.Generator]):
         bound = 1.0 / math.sqrt(self.weight[0].numel())
         nn.init.uniform_(self.weight, -bound, bound, generator=generator)
+        if self.bias is not None:
+            nn.init.uniform_(self.bias, -bound, bound, generator=generator)
 
     def forward(self, x):
         k = self.weight.shape[-1]
-        ph = same_pads(x.shape[-2], k, self.stride)
-        pw = same_pads(x.shape[-1], k, self.stride)
+        if self.padding == "VALID":
+            ph = pw = (0, 0)
+        else:
+            ph = same_pads(x.shape[-2], k, self.stride)
+            pw = same_pads(x.shape[-1], k, self.stride)
         folded = active_folded_users()
         if folded is not None:
-            return SharedConv.apply(x.to(self.dtype), self.weight.to(self.dtype),
-                                    folded.ghost_for(self.weight), folded.users,
-                                    self.stride, ph + pw)
-        if any(ph + pw):
-            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), stride=self.stride)
+            y = SharedConv.apply(x.to(self.dtype), self.weight.to(self.dtype),
+                                 folded.ghost_for(self.weight), folded.users,
+                                 self.stride, ph + pw)
+        else:
+            if any(ph + pw):
+                x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+            y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), stride=self.stride)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)[:, None, None]
+        return y
 
 
 class Dense(nn.Module):
@@ -169,6 +185,25 @@ def reset_parameters(model: nn.Module, generator: Optional[torch.Generator]) -> 
     for mod in model.modules():
         if isinstance(mod, (Conv2d, Dense, BatchNorm)):
             mod.reset_parameters(generator)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None) -> torch.Tensor:
+    """gqx's ``max_pool``: VALID windows; a tied window's gradient goes to
+    its first maximum in row-major order, in both packages."""
+    return F.max_pool2d(x, window, stride or window)
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: Optional[int] = None) -> torch.Tensor:
+    """gqx's ``avg_pool``: VALID windows."""
+    return F.avg_pool2d(x, window, stride or window)
+
+
+def check_classifier_input(network: str, image_shape, side_h: int, side_w: int) -> None:
+    """Raise where ``image_shape`` pools to an empty map before the
+    classifier (gqx dies there with a ZeroDivisionError in its init)."""
+    if side_h < 1 or side_w < 1:
+        raise ValueError(f"{network}: image shape {tuple(image_shape)} pools to an empty "
+                         f"{side_h}x{side_w} map before the classifier")
 
 
 def nhwc_flatten(x: torch.Tensor) -> torch.Tensor:

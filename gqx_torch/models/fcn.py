@@ -18,6 +18,7 @@ class FCN(nn.Module):
         super().__init__()
         if image_shape is not None:   # gqx's Dense takes its width from the input
             d_in = math.prod(image_shape)
+        self.image_shape = tuple(image_shape) if image_shape is not None else (28, 28, 1)
         self.dtype = dtype
         self.fc1 = Dense(d_in, hidden, dtype, flax_path="TorchDense_0/Dense_0")
         self.fc2 = Dense(hidden, num_classes, dtype, flax_path="TorchDense_1/Dense_0")

@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gqx_torch.models.common import BatchNorm, Conv2d, Dense, nhwc_flatten
+from gqx_torch.models.common import (BatchNorm, Conv2d, Dense, avg_pool, check_classifier_input,
+                                     nhwc_flatten)
 
 
 def _conv_bn(cin, cout, k, stride, dtype, i):
@@ -79,6 +80,7 @@ class ResNet(nn.Module):
                  image_shape=(32, 32, 3)):
         super().__init__()
         self.dtype = dtype
+        self.image_shape = tuple(image_shape)
         h, w, c = image_shape
         self.conv1 = Conv2d(c, 64, 3, 1, dtype, flax_path="TorchConv_0/Conv_0")
         self.bn1 = BatchNorm(64, flax_path="BatchNorm_0/BatchNorm_0")
@@ -94,6 +96,8 @@ class ResNet(nn.Module):
                 index += 1
             setattr(self, f"layer{s + 1}", layer)
         # gqx's classifier takes its width from the pooled map
+        check_classifier_input(f"{block.__name__} ResNet {tuple(stage_sizes)}", image_shape,
+                               _pooled(h), _pooled(w))
         self.linear = Dense(cin * _pooled(h) * _pooled(w), num_classes, dtype,
                             flax_path="TorchDense_0/Dense_0")
 
@@ -101,7 +105,7 @@ class ResNet(nn.Module):
         x = x.to(self.dtype)
         x = F.relu(self.bn1(self.conv1(x)))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        x = F.avg_pool2d(x, 4)
+        x = avg_pool(x, 4)
         return self.linear(nhwc_flatten(x)).to(torch.float32)
 
 

@@ -543,6 +543,29 @@ def test_cuda_per_user_dw_matches_plain(cuda_device, users, batch, ci, co, h, w,
     _check_dw(x.to(cuda_device, dtype), dy.to(cuda_device, dtype), users, kh, kw, ph, pw, route)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, F32])
+@pytest.mark.parametrize("users,batch,ci,co,hw", [
+    # VGG-16: widening convs, and 512 channels on a 2x2 plane (2-pixel loads)
+    (8, 4, 64, 128, 16), (8, 4, 128, 256, 8), (8, 4, 256, 512, 4), (8, 4, 512, 512, 2),
+    (8, 32, 512, 512, 2),
+    # DenseNet-BC: the 3 -> 24 stem, and 48 -> 12 (12 rows of a 64-row co
+    # tile, 48 columns of a 64-column ci tile) at every plane
+    (8, 4, 3, 24, 32), (8, 4, 48, 12, 32), (8, 4, 48, 12, 16), (8, 4, 48, 12, 8),
+    (8, 32, 48, 12, 4)])
+def test_cuda_per_user_dw_at_vgg_and_densenet_geometries(cuda_device, users, batch, ci, co, hw,
+                                                         dtype):
+    """The 3x3 SAME convs of VGG-16 and DenseNet-BC that no ResNet has, on
+    the route each takes (narrow below 16 input channels, tensor cores
+    above; bf16 or float32)."""
+    rng = np.random.default_rng(ci * co + hw)
+    x = torch.from_numpy(rng.standard_normal((users * batch, ci, hw, hw)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((users * batch, co, hw, hw)).astype(np.float32))
+    route = dw_ops.route(dtype, ci, 3)
+    assert route == ((TC if dtype == torch.bfloat16 else TF) if ci >= 16 else
+                     (NW if dtype == torch.bfloat16 else NF))
+    _check_dw(x.to(cuda_device, dtype), dy.to(cuda_device, dtype), users, 3, 3, 1, 1, route)
+
+
 def test_cuda_per_user_dw_f32_mixed_magnitudes(cuda_device):
     """float32 on the tensor cores with x of mixed sign over 2^-20 .. 2^20
     (random significands, so no product ties) and every user's images in
@@ -723,3 +746,27 @@ def test_cuda_topk_ties_match_cpu(cuda_device, kind):
     assert torch.equal(got["indices"].cpu(), want["indices"])
     assert torch.equal(got["values"].cpu(), want["values"])
     assert torch.equal(comp.decode_mean(got).cpu(), comp.decode_mean(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_max_pool_ties_match_cpu(cuda_device, dtype):
+    """Max pooling (VGG, the CNN) on windows whose maxima tie, on positive
+    values exact in bf16: the card's forward and its gradient equal the
+    CPU's bit for bit (a tied window's gradient goes to its first maximum,
+    as on the CPU and in gqx: tests/test_torch_zoo.py)."""
+    from gqx_torch.models.common import max_pool
+
+    rng = np.random.default_rng(7)
+    levels = np.array([0.5, 1.0, 1.5, 2.0], np.float32)
+    x = torch.from_numpy(levels[rng.integers(0, 4, (64, 32, 9, 9))]).to(dtype)
+    x[0, 0, :2, :2] = 1.5
+    cot = torch.from_numpy(rng.standard_normal((64, 32, 4, 4)).astype(np.float32)).to(dtype)
+    out = []
+    for dev in ("cpu", cuda_device):
+        xd = x.to(dev).requires_grad_(True)
+        y = max_pool(xd, 2)
+        dx, = torch.autograd.grad(y, xd, cot.to(dev))
+        out.append((y.detach().cpu(), dx.cpu()))
+    (y_cpu, dx_cpu), (y_card, dx_card) = out
+    assert torch.equal(y_card, y_cpu) and torch.equal(dx_card, dx_cpu)
+    assert int((dx_cpu[0, 0, :2, :2] != 0).sum()) == 1 and dx_cpu[0, 0, 0, 0] != 0
