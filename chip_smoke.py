@@ -31,7 +31,17 @@
    exists, the PyTorch call computing the same function (for the conv
    weight gradient, one grouped call for all users, with the per-user
    calls beside it).
-4. Runs ten training paths (CIFAR ResNet-50 but for P10 and P11, 8 users
+   [kmeans] Trains the (576, 256) codebook that P12's stem needs (no file
+   holds it) at gqx's defaults (1M samples, 20 iterations, seed 808) on
+   the card through ``get_codebook`` into an empty temporary cache, and
+   prints its wall ms; holds the card's Lloyd iterations against the
+   CPU's on the same 65,536 x 576 samples and initial rows, each of 5
+   iterations from the CPU's centroids (assignments may differ only on
+   near-ties, centroids by what a moved row moves); trains (16, 256) on
+   the card and scores it against the shipped file, which gqx's k-means
+   wrote (the mean best cosine over 200,000 fresh unit samples within
+   0.5%).
+4. Runs eleven training paths (CIFAR ResNet-50 but for P10 and P11, 8 users
    x 32, bf16 compute but for P7, hsq_passes=1, random weights and data
    from --seed), each for
    one warm-up step and --steps steps with the launch counters set to 0
@@ -56,6 +66,11 @@
      P11 P1 on DenseNet-BC (``dense``: the channel concatenation), both
          with their device time split by family as gqx_torch.bench splits
          it;
+     P12 P1 with HSQ c_dim 256 / k_bit 8 at the default passthrough
+         threshold: the grouped unit of 91,904 rows of 256 and the stem's
+         unit of 3 rows of 576 a user (the codebook [kmeans] trained), both
+         on the wide route, whose encode and decode are also held to their
+         plain versions and timed at the stem's 24 rows;
    and P6, HSQ c_dim 256 / k_bit 8 on the gradient unit of P1's plan through
    the compressor's entry points (compress_batch, decode_mean; the encode
    on the wide route), its launches counted the same way.
@@ -92,6 +107,10 @@
    step), the LeNet CNN for 8 steps on MNIST-format files made from the
    seed (no K7), and the verify skill's FCN drive, which must end at >= 99%
    test accuracy; each with one encode, uniforms and decode-mean a step.
+   [cli c256] Then ResNet-50 at c_dim 256 / k_bit 8 and the default
+   threshold, float32, one epoch, with an empty codebook cache: the run
+   trains the stem's codebook on the card, and launches 2 wide encodes, 2
+   uniform draws and 2 row decodes a step.
 8. [bench] Runs ``gqx_torch.bench`` for hsq and sgd (bf16, 1 + 1 + 5
    steps), then for hsq in float32: the families of each device-time
    split must sum to its device total within 1%.  The float32 hsq ms per
@@ -102,6 +121,12 @@
    each of 8 users: the words must equal the CPU's pack of the same
    signature, the unpack must give it back bit for bit, and the payload's
    bytes must be ``wire_bytes``; times pack and unpack per user and step.
+   [native] The port's C++ data library (gqx_torch/csrc/gqx_native.cc):
+   the augment of a CIFAR-sized global batch (shape, dtype, range), a
+   no-augment dataset and normalize equal to numpy's, the host ms of the
+   native and the numpy augment with the OpenMP thread count, pack /
+   unpack equal to gqx_torch/ops/pack.py at every width 1-32, and the
+   Pipeline's default augment, which must be the native one.
 10. Prints the wall time, the ``kernels`` JSON line, the card line and,
    last, the result line {"ok": true, "device": {...}}.
 
@@ -116,8 +141,11 @@ import collections
 import contextlib
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 tensor FLOP/s,
@@ -157,7 +185,9 @@ def cuda_ms(fn, n: int, warmup: int = 1) -> float:
 def device_ms(fn, n: int) -> float:
     """Device time of one call of ``fn``: the kernels' time summed by
     torch.profiler over ``n`` calls, over ``n``.  Unlike CUDA events around
-    the calls, it does not count the time the card waits for the host."""
+    the calls, it does not count the time the card waits for the host.
+    Where three profiled windows show no device time, the calls are timed
+    by CUDA events instead, and a line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -175,7 +205,10 @@ def device_ms(fn, n: int) -> float:
                     if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
         if total > 0.0:
             return total / 1e3 / n
-    raise AssertionError("the profiler saw no device time in three windows")
+    # three empty windows in a row (seen once, at a 9 us pack): CUDA events
+    log(f"[profile] the profiler saw no device time in three windows of {n} calls: "
+        "timed by CUDA events instead")
+    return cuda_ms(fn, n)
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float):
@@ -198,10 +231,9 @@ PATHS = {
     # gqx's default compute dtype: float32 units, the float32 K7 routes
     "P7": (dict(compute_dtype="float32"),
            dict(hsq_encode=1, philox_uniform=1, hsq_decode_mean=1)),
-    # the wide row-major route in training: at c_dim 256 the stem's 1,728
-    # weights would get subvectors of 576, which have no codebook, so the
-    # stem is passed through (it still takes its per-user gradient from the
-    # narrow K7 kernel, 13 + 1 a step); one HSQ unit of 91,904 rows of 256
+    # the wide row-major route in training with the stem passed through (it
+    # still takes its per-user gradient from the narrow K7 kernel, 13 + 1 a
+    # step): one HSQ unit of 91,904 rows of 256 (P12 compresses the stem)
     "P8": (dict(c_dim=256, k_bit=8, passthrough_threshold=2048),
            dict(hsq_rows_encode_wide=1, philox_uniform=1, hsq_rows_decode=1)),
     # Residual: one float32 unit of 23,498,432 elements, not padded (only
@@ -216,6 +248,12 @@ PATHS = {
     # concatenation; K7 at 48 -> 12, 12 of a 64-row channel tile)
     "P10": (dict(network="vgg16"), dict(hsq_encode=1, philox_uniform=1, hsq_decode_mean=1)),
     "P11": (dict(network="dense"), dict(hsq_encode=1, philox_uniform=1, hsq_decode_mean=1)),
+    # HSQ c_dim 256 / k_bit 8 at the default passthrough threshold (1000): the
+    # grouped unit of 91,904 rows of 256 and, as a unit of its own, the stem's
+    # 1,728 weights as 3 rows of 576 per user with the codebook [kmeans]
+    # trained; both on the wide route
+    "P12": (dict(c_dim=256, k_bit=8),
+            dict(hsq_rows_encode_wide=1, philox_uniform=1, hsq_rows_decode=1)),
 }
 # the paths whose device time is also split by family (gqx_torch.bench)
 SPLIT_PATHS = ("P10", "P11")
@@ -2097,6 +2135,283 @@ def bench_phase(entries, runner_ms):
         f"batch resident on the card)")
 
 
+# [kmeans]: the codebook that P12's stem needs (576 = the stem's 1,728
+# weights at c_dim 256, which the repository does not ship), at gqx's
+# defaults; the card's Lloyd against the CPU's at a size the CPU runs in
+# seconds; a quality check against a shipped codebook gqx's k-means wrote
+KMEANS_DIM, KMEANS_K = 576, 256
+KMEANS_CHECK = (65_536, 5)          # rows, iterations
+QUALITY = (16, 256, 200_000, 5e-3)  # dim, K, fresh samples, relative tolerance
+
+
+def use_codebook_cache(directory: str) -> None:
+    """Point the port's codebook cache at ``directory`` (empty, so that the
+    next codebook the repository does not ship is trained) and clear the
+    registry's memo."""
+    import os
+
+    from gqx_torch import codebooks
+
+    os.makedirs(directory, exist_ok=True)
+    codebooks.CACHE_DIR = directory
+    codebooks.get_codebook.cache_clear()
+
+
+def lloyd_lockstep(x, c, iters: int):
+    """``iters`` Lloyd iterations on the card and on the CPU, each from the
+    CPU's centroids.  An assignment may differ only on a near-tie (the top
+    two logits within 1e-5); a centroid that no differing row touched must
+    agree within 1e-5, any other within 2 / its count per moved row (a
+    moved unit row shifts a mean of unit rows by at most that).  Returns
+    (assignments differing per iteration, the largest margin of a
+    differing one, the largest centroid difference per iteration)."""
+    import torch
+
+    from gqx_torch.codebooks import kmeans
+
+    xd = x.cuda()
+    differing, margin, errs = [], 0.0, []
+    for _ in range(iters):
+        a_cpu, a_card = kmeans.assign(x, c), kmeans.assign(xd, c.cuda()).cpu()
+        differ = a_card != a_cpu
+        differing.append(int(differ.sum()))
+        if differing[-1]:
+            logits = x[differ] @ c.T - 0.5 * (c * c).sum(1)
+            rows = torch.arange(logits.shape[0])
+            gap = logits[rows, a_cpu[differ]] - logits[rows, a_card[differ]]
+            margin = max(margin, float(gap.abs().max()))
+            if margin > 1e-5:
+                raise AssertionError(f"k-means: an assignment differs by a logit margin of "
+                                     f"{margin}")
+        want = kmeans.lloyd_from(x, c, 1)
+        got = kmeans.lloyd_from(xd, c.cuda(), 1).cpu()
+        moved = torch.bincount(torch.cat([a_cpu[differ], a_card[differ]]), minlength=c.shape[0])
+        count = torch.minimum(torch.bincount(a_cpu, minlength=c.shape[0]),
+                              torch.bincount(a_card, minlength=c.shape[0])).clamp_min(1)
+        err = (got - want).abs().amax(1)
+        if not bool((err <= 1e-5 + 2.0 * moved / count).all()):
+            raise AssertionError(f"k-means: centroids differ by up to {float(err.max())} with "
+                                 f"{differing[-1]} assignments moved")
+        errs.append(float(err.max()))
+        c = want
+    return differing, margin, errs
+
+
+def kmeans_phase(seed: int, card: str):
+    """Train the (576, 256) codebook at gqx's defaults (1M samples, 20
+    iterations, seed 808) on the card through ``get_codebook`` into the
+    (empty) cache; hold the card's Lloyd against the CPU's on the same
+    samples; train a (16, 256) codebook on the card and score it against
+    the shipped one over fresh unit samples.  Returns the wall ms of the
+    (576, 256) training."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from gqx_torch import codebooks
+    from gqx_torch.codebooks import kmeans
+
+    path = os.path.join(codebooks.CACHE_DIR, codebooks.codebook_filename(KMEANS_DIM, KMEANS_K))
+    if any(os.path.exists(os.path.join(d, codebooks.codebook_filename(KMEANS_DIM, KMEANS_K)))
+           for d in codebooks.search_dirs()):
+        raise AssertionError("kmeans: a (576, 256) codebook exists already; nothing would train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cb = codebooks.get_codebook(KMEANS_DIM, KMEANS_K, device="cuda")
+    train_ms = (time.perf_counter() - t0) * 1e3
+    if cb.shape != (KMEANS_K, KMEANS_DIM) or not np.isfinite(cb).all() or not os.path.exists(path):
+        raise AssertionError(f"kmeans: codebook {cb.shape}, cached {os.path.exists(path)}")
+    log(f"[kmeans] ({KMEANS_DIM}, {KMEANS_K}) trained on the card at gqx's defaults "
+        f"({kmeans.DEFAULT_TRAIN_SIZE} samples, {kmeans.DEFAULT_ITERS} iterations, seed 808): "
+        f"{train_ms:.1f} ms wall, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated; cached as {path} | {card}")
+
+    n, iters = KMEANS_CHECK
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = kmeans.unit_gaussian_samples(n, KMEANS_DIM, gen, "cuda").cpu()
+    c = x[torch.randperm(n, generator=torch.Generator().manual_seed(seed))[:KMEANS_K]]
+    t0 = time.perf_counter()
+    differing, margin, errs = lloyd_lockstep(x, c, iters)
+    log(f"[kmeans] card against CPU, {n} x {KMEANS_DIM}, K {KMEANS_K}, {iters} iterations from "
+        f"the same samples and initial rows (each from the CPU's centroids): assignments "
+        f"differing {differing} (first iteration {differing[0]}), largest margin of a differing "
+        f"one {margin:.3e}; largest centroid difference {max(errs):.3e} (per iteration "
+        f"{[f'{e:.2e}' for e in errs]}); {time.perf_counter() - t0:.1f} s | {card}")
+
+    dim, k, m, tol = QUALITY
+    t0 = time.perf_counter()
+    trained = codebooks.normalize_rows(kmeans.train_codebook(dim, k, device="cuda"))[1]
+    quality_ms = (time.perf_counter() - t0) * 1e3
+    shipped = codebooks.fvecs_read(os.path.join(codebooks.DEFAULT_DIR,
+                                                codebooks.codebook_filename(dim, k)))
+    shipped = codebooks.normalize_rows(shipped)[1]
+    samples = kmeans.unit_gaussian_samples(m, dim, torch.Generator(device="cuda").manual_seed(
+        seed + 1), "cuda")
+
+    def score(book):
+        with torch.no_grad():
+            return float((samples @ torch.from_numpy(book).cuda().T).amax(1).double().mean())
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ours, theirs = score(trained), score(shipped)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"[kmeans] quality ({dim}, {k}) trained on the card ({quality_ms:.1f} ms wall): mean best "
+        f"cosine over {m} fresh unit samples {ours:.6f}, the shipped codebook's {theirs:.6f} "
+        f"({100 * (ours / theirs - 1):+.3f}%) | {card}")
+    if abs(ours / theirs - 1) > tol:
+        raise AssertionError(f"kmeans: quality {ours} against the shipped {theirs}")
+    return train_ms
+
+
+def stem_rows_check(state, plan, cfg, batch, entries):
+    """K6 encode (wide route) and K6 decode at P12's stem unit, 8 users x
+    3 rows of 576 with the trained codebook, on the step's own bf16
+    gradient rows: against their plain versions, and timed; the records
+    join the ``shapes`` of both entries."""
+    import torch
+
+    from gqx_torch.ops import hsq_rows
+
+    x, y, _ = batch
+    (ui, unit), = [(i, u) for i, u in enumerate(plan.units)
+                   if getattr(u.compressor, "dim", None) == KMEANS_DIM]
+    comp = unit.compressor
+    _, grads = per_user_grads(cfg, state, plan, x, y)
+    g = plan.pack(grads)[ui]
+    rows = g.reshape(cfg.num_users, comp.M, comp.dim).contiguous()
+    cb = comp.codebook(rows.device)
+    label = f"P12 stem {str(rows.dtype)[6:]}"
+    u, codes, err = check_rows_encode(rows, cb, comp.code_dtype,
+                                      f"hsq_rows_encode {label} dim {comp.dim} K {comp.K}",
+                                      hsq_rows.TENSOR_CORE_WIDE)
+    rec = rows_timing(label, rows, cb, comp.code_dtype)
+    rec["max_abs_err"] = err
+    entries["hsq_rows_encode_wide"]["shapes"].append(rec)
+    d_k, d_p = hsq_rows.hsq_decode(codes, u, cb), hsq_rows.hsq_decode_plain(codes, u, cb)
+    torch.cuda.synchronize()
+    if not torch.equal(d_k, d_p):
+        raise AssertionError(f"hsq_rows_decode {label}: not bit-equal to plain")
+    n = codes.numel()
+    b, by = bound(n * 5 + n * comp.dim * 4 + comp.K * comp.dim * 4, 1.0 * n * comp.dim,
+                  FP32_FLOPS)
+    dec = dict(shape=label, rows=n, ms=device_ms(lambda: hsq_rows.hsq_decode(codes, u, cb), 20),
+               plain_ms=device_ms(lambda: hsq_rows.hsq_decode_plain(codes, u, cb), 5),
+               bound_ms=b, bound_by=by, max_abs_err=0.0)
+    entries["hsq_rows_decode"].setdefault("shapes", []).append(dec)
+    log(f"[hsq_rows_decode {label}] {n} rows of {comp.dim}: bit-equal to plain; {dec['ms']:.4f} "
+        f"ms device time (bound {b:.4f} ms by {by}), plain {dec['plain_ms']:.4f} ms")
+
+
+# [cli c256]: gqx's CLI at c_dim 256 and the default passthrough threshold on
+# ResNet-50 (gqx's default float32 compute), one epoch of the synthetic set;
+# the stem's (576, 256) codebook is trained inside the run, on the card
+C256_FLAGS = ["--network", "resnet50", "--dataset", "synthetic", "--quantizer", "hsq",
+              "--c-dim", "256", "--k-bit", "8", "--n-bit", "6", "--num-users", "8",
+              "--batch-size", "32", "--epochs", "1"]
+C256_PER_STEP = {"hsq_rows_encode_wide": 2, "philox_uniform": 2, "hsq_rows_decode": 2}
+
+
+def cli_c256_phase(entries, cache_dir: str, card: str):
+    """``gqx_torch.cli.main`` at c_dim 256 with an empty codebook cache: the
+    run trains the stem's codebook on the card, takes 16 steps (2 wide
+    encodes, 2 uniform draws and 2 row decodes a step, K7 on the float32
+    routes) and evaluates."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from gqx_torch import codebooks
+
+    use_codebook_cache(cache_dir)
+    logdir = tempfile.mkdtemp(prefix="gqx_torch_c256_")
+    try:
+        per_step = {**dw_per_step("resnet50", "float32"), **C256_PER_STEP}
+        state, _, text = cli_run(C256_FLAGS + ["--logdir", logdir], "cli c256",
+                                 CLI_STEPS_PER_EPOCH, per_step, entries)
+        if state.step != CLI_STEPS_PER_EPOCH:
+            raise AssertionError(f"cli c256: the run ended at step {state.step}")
+        name = codebooks.codebook_filename(KMEANS_DIM, KMEANS_K)
+        if os.listdir(cache_dir) != [name]:
+            raise AssertionError(f"cli c256: the cache holds {os.listdir(cache_dir)}")
+        loop = re.search(r"training loop ([\d.]+) ms/step", text).group(1)
+        log(f"[cli c256] the run trained {name} into the empty cache; training loop {loop} "
+            f"ms/step | {card}")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+
+def native_phase(seed: int, card: str):
+    """The port's native data library on the card's host: augment and
+    normalize a CIFAR-sized global batch (8 x 32 uint8 images from the
+    seed), a no-augment dataset equal to normalize, the host ms of the
+    native and the numpy augment, pack / unpack equal to
+    ``gqx_torch.ops.pack``'s at every width 1-32, and the Pipeline's
+    default augment."""
+    import numpy as np
+    import torch
+
+    from gqx_torch.config import GQConfig
+    from gqx_torch.data import Pipeline
+    from gqx_torch.data import native
+    from gqx_torch.data.transforms import STATS, augment_batch, normalize
+    from gqx_torch.ops import pack
+
+    if not native.available():
+        raise AssertionError("native: the library did not build")
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, size=(256, 32, 32, 3)).astype(np.uint8)
+    out = native.augment_batch(x, "cifar10", np.random.default_rng(seed))
+    mean, std = (np.asarray(v, np.float32) for v in STATS["cifar10"])
+    lo, hi = float((-mean / std).min()), float(((1 - mean) / std).max())
+    if out.shape != x.shape or out.dtype != np.float32 or not (lo - 1e-5 <= out.min()
+                                                               and out.max() <= hi + 1e-5):
+        raise AssertionError(f"native: augment {out.shape} {out.dtype} in [{out.min()}, "
+                             f"{out.max()}], expected [{lo}, {hi}]")
+    plain = native.augment_batch(x, "synthetic", np.random.default_rng(seed))
+    if not np.allclose(plain, normalize(x, "synthetic"), rtol=1e-5, atol=1e-6) or \
+            not np.allclose(native.normalize_batch(x, "cifar10"), normalize(x, "cifar10"),
+                            rtol=1e-5, atol=1e-6):
+        raise AssertionError("native: normalize differs from numpy's")
+
+    def host_ms(fn, n=20):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    r1, r2 = np.random.default_rng(seed), np.random.default_rng(seed)
+    native_ms = host_ms(lambda: native.augment_batch(x, "cifar10", r1))
+    numpy_ms = host_ms(lambda: augment_batch(x, "cifar10", r2))
+    widths = 0
+    for bits in range(1, 33):
+        vals = rng.integers(0, 2 ** bits, size=4099, dtype=np.uint64).astype(np.uint32)
+        words = native.pack_bits(vals, bits)
+        want = pack.pack_bits(torch.from_numpy(vals.astype(np.int64)), bits)
+        back = native.unpack_bits(words, bits, vals.size)
+        ref = pack.unpack_bits(want, bits, vals.size).numpy().astype(np.uint32)
+        if not (np.array_equal(words, want.numpy().view(np.uint32))
+                and np.array_equal(back, vals) and np.array_equal(ref, vals)):
+            raise AssertionError(f"native: pack / unpack differ from ops/pack.py at {bits} bits")
+        widths += 1
+    cfg = GQConfig(dataset="synthetic", num_users=8, batch_size=32,
+                   dataset_kwargs=dict(num_train=256, num_test=64))
+    augment = Pipeline(cfg).augment
+    if augment != "native":
+        raise AssertionError(f"native: the Pipeline took the {augment} augment")
+    log(f"[native] cifar10 global batch 256 x 32x32x3: augment {native_ms:.3f} ms host "
+        f"({native.num_threads()} OpenMP threads), numpy {numpy_ms:.3f} ms "
+        f"({numpy_ms / native_ms:.1f}x); range [{out.min():.4f}, {out.max():.4f}]; normalize as "
+        f"numpy's; pack / unpack equal to ops/pack.py at {widths} widths; Pipeline augment "
+        f"{augment} | {card}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2127,6 +2442,31 @@ def main():
     log_entries(entries)
     for e in entries.values():
         e["launches"], e["launches_by_path"] = 0, {}
+    cache_root = tempfile.mkdtemp(prefix="gqx_torch_codebooks_")
+    try:
+        use_codebook_cache(os.path.join(cache_root, "kmeans"))
+        kmeans_phase(args.seed, card)
+        torch.cuda.empty_cache()
+        paths_and_phases(args, entries, card, cache_root)
+    finally:
+        shutil.rmtree(cache_root, ignore_errors=True)
+
+    order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
+             "hsq_rows_encode_tc", "hsq_rows_encode_wide", "hsq_rows_decode", "per_user_dw",
+             "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32", "per_user_dw_narrow_f32")
+    log(f"[time] chip_smoke.py: {time.perf_counter() - start:.1f} s wall, the build included")
+    print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def paths_and_phases(args, entries, card: str, cache_root: str):
+    """The training paths (P12 with the codebook [kmeans] trained), P6, the
+    folded-against-looped comparison, the comparison configurations, [cli],
+    [cli c256], [bench], [wire] and [native]."""
+    import torch
 
     for name, (extra, per_step) in PATHS.items():
         cfg = canonical_config(**extra)
@@ -2140,6 +2480,11 @@ def main():
         log(f"[slice {name}] conv weight gradient launches by route over {steps} steps: "
             f"{ {k: v for k, v in launches.items() if k.startswith('per_user_dw')} }")
         check_launches(name, cfg, plan, steps, launches, per_step, entries)
+        if name == "P12":
+            units = [(type(u.compressor).__name__, u.size, getattr(u.compressor, "dim", None),
+                      getattr(u.compressor, "K", None)) for u in plan.units]
+            log(f"[slice P12] units (kind, elements, rows of dim, K): {units} | {card}")
+            stem_rows_check(state, plan, cfg, batch, entries)
         if name in ("P1", "P7"):
             breakdown_and_reference(cfg, state, plan, step, batch, args.seed, ms)
             if name == "P1":
@@ -2172,19 +2517,12 @@ def main():
     torch.cuda.empty_cache()
     runner_ms = cli_phase(entries, args.seed)
     torch.cuda.empty_cache()
+    cli_c256_phase(entries, os.path.join(cache_root, "cli"), card)
+    torch.cuda.empty_cache()
     bench_phase(entries, runner_ms)
     torch.cuda.empty_cache()
     wire_phase(args.seed)
-
-    order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
-             "hsq_rows_encode_tc", "hsq_rows_encode_wide", "hsq_rows_decode", "per_user_dw",
-             "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32", "per_user_dw_narrow_f32")
-    log(f"[time] chip_smoke.py: {time.perf_counter() - start:.1f} s wall, the build included")
-    print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    native_phase(args.seed, card)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,15 @@
-"""Codebook registry (counterpart of ``gqx/codebooks/__init__.py``).
+"""Codebook registry (counterpart of ``gqx/codebooks/__init__.py``): load a
+learned codebook from disk, or train one with k-means and cache it.
 
-Reads ``angular_dim_{d}_Ks_{K}.fvecs`` files in place and never writes them,
-searching gqx's directories in gqx's order (``search_dirs``) and skipping a
-file whose shape is not (K, d).  Rows are L2-normalized at load, as the
-reference does.  Training a missing codebook with k-means is not ported
-yet, so a codebook that no directory holds raises.
+Reads ``angular_dim_{d}_Ks_{K}.fvecs`` files in place, searching gqx's
+directories in gqx's order with the port's own cache after the
+repository's codebooks (``search_dirs``), and skips a file whose shape is
+not (K, d).  Where no directory holds the codebook, ``get_codebook`` trains
+one on its ``device`` (``gqx_torch.codebooks.kmeans``) and writes it into
+``CACHE_DIR`` only: unlike gqx, which caches into the repository's
+``codebooks/learned_codebook``, the port never writes the shipped
+codebooks.  Rows are L2-normalized at load and after training, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -15,15 +20,21 @@ from typing import List, Optional
 
 import numpy as np
 
-from gqx_torch.utils.vecs_io import fvecs_read, normalize_rows
+from gqx_torch.codebooks.kmeans import DEFAULT_TRAIN_SIZE, train_codebook
+from gqx_torch.utils.vecs_io import fvecs_read, fvecs_write, normalize_rows
 
 #: a directory searched after ``search_dir`` and before the repository's
 ENV_DIR = "GQX_CODEBOOK_DIR"
 #: a directory searched last (an external artifact family)
 ENV_REFERENCE_DIR = "GQX_REFERENCE_CODEBOOKS"
+#: the number of samples a missing codebook is trained on
+ENV_TRAIN_SIZE = "GQX_CODEBOOK_TRAIN_SIZE"
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_REPO_ROOT = os.path.dirname(_PKG)
 DEFAULT_DIR = os.path.join(_REPO_ROOT, "codebooks", "learned_codebook")
+#: where the port writes the codebooks it trains (git-ignored)
+CACHE_DIR = os.path.join(_PKG, "_build", "codebooks")
 EXTRA_SEARCH_DIRS = ("./codebooks/learned_codebook",)
 
 
@@ -33,27 +44,40 @@ def codebook_filename(dim: int, k: int) -> str:
 
 def search_dirs(search_dir: Optional[str] = None) -> List[str]:
     """The directories searched, in order: ``search_dir``, ``$GQX_CODEBOOK_DIR``,
-    the repository's ``codebooks/learned_codebook``, ``./codebooks/learned_codebook``
-    and ``$GQX_REFERENCE_CODEBOOKS`` (an unset variable or a missing argument
-    adds nothing)."""
+    the repository's ``codebooks/learned_codebook``, the port's ``CACHE_DIR``,
+    ``./codebooks/learned_codebook`` and ``$GQX_REFERENCE_CODEBOOKS`` (an
+    unset variable or a missing argument adds nothing)."""
     env, ref = os.environ.get(ENV_DIR), os.environ.get(ENV_REFERENCE_DIR)
-    return [d for d in (search_dir, env, DEFAULT_DIR, *EXTRA_SEARCH_DIRS, ref) if d]
+    return [d for d in (search_dir, env, DEFAULT_DIR, CACHE_DIR, *EXTRA_SEARCH_DIRS, ref) if d]
 
 
 @functools.lru_cache(maxsize=None)
-def get_codebook(dim: int, k: int, search_dir: Optional[str] = None) -> np.ndarray:
+def get_codebook(dim: int, k: int, search_dir: Optional[str] = None,
+                 train_size: Optional[int] = None, cache: bool = True,
+                 device="cuda") -> np.ndarray:
     """Unit-row (k, dim) float32 codebook: the first file of ``search_dirs``
-    that holds a (k, dim) codebook."""
-    dirs = search_dirs(search_dir)
-    for d in dirs:
-        path = os.path.join(d, codebook_filename(dim, k))
+    that holds a (k, dim) codebook, else one trained on ``device`` from
+    ``train_size`` samples (``$GQX_CODEBOOK_TRAIN_SIZE``, else 1M) and, with
+    ``cache``, written into ``CACHE_DIR``."""
+    fname = codebook_filename(dim, k)
+    for d in search_dirs(search_dir):
+        path = os.path.join(d, fname)
         if os.path.exists(path):
             cb = fvecs_read(path)
             if cb.shape == (k, dim):
                 return normalize_rows(cb)[1].astype(np.float32)
-    raise FileNotFoundError(
-        f"no (K={k}, dim={dim}) codebook {codebook_filename(dim, k)} in {dirs}; training "
-        "one with k-means is not ported yet (ROADMAP Queue 1, item 12)")
+    if train_size is None:
+        train_size = int(os.environ.get(ENV_TRAIN_SIZE, DEFAULT_TRAIN_SIZE))
+    cb = normalize_rows(train_codebook(dim, k, train_size=train_size, device=device))[1]
+    cb = cb.astype(np.float32)
+    if cache:
+        os.makedirs(CACHE_DIR, exist_ok=True)
+        path = os.path.join(CACHE_DIR, fname)
+        # a whole file or none: processes that train the same codebook race
+        tmp = f"{path}.{os.getpid()}.tmp"
+        fvecs_write(tmp, cb)
+        os.replace(tmp, path)
+    return cb
 
 
 def orthonormal_codebook(dim: int, seed: int = 1) -> np.ndarray:

@@ -28,10 +28,10 @@ from gqx_torch.compress.vq import (  # noqa: F401
 
 
 def make_compressor(name: str, size: int, shape: Tuple[int, ...], config,
-                    norm_segment_sizes=None) -> Compressor:
+                    norm_segment_sizes=None, device="cuda") -> Compressor:
     """One compressor from a GQConfig-like object; ``norm_segment_sizes``
     segments the VQ families' norm range per original leaf of a grouped
-    unit."""
+    unit; a VQ codebook that no file holds is trained on ``device``."""
     random = bool(getattr(config, "random", True))
     if name == "sgd":
         return IdenticalCompressor(size, shape)
@@ -47,17 +47,18 @@ def make_compressor(name: str, size: int, shape: Tuple[int, ...], config,
             size, shape, config.c_dim, config.k_bit, config.n_bit, random,
             norm_segment_sizes=norm_segment_sizes,
             passes=int(getattr(config, "hsq_passes", 2)),
+            codebook_device=device,
         )
     if name == "pvq":
         return ProbabilisticVectorCompressor(
             size, shape, config.c_dim, config.k_bit, config.n_bit, random,
-            norm_segment_sizes=norm_segment_sizes,
+            norm_segment_sizes=norm_segment_sizes, codebook_device=device,
         )
     if name == "residual":
         # gqx's registry passes no ``passes`` here: its HSQ stage runs at 2
         return ResidualCompressor(
             size, shape, config.c_dim, config.k_bit, config.n_bit, random,
-            norm_segment_sizes=norm_segment_sizes,
+            norm_segment_sizes=norm_segment_sizes, codebook_device=device,
         )
     if name == "topk":
         return TopKCompressor(size, shape, config.cr)

@@ -41,11 +41,12 @@ from gqx_torch.ops.rand import uniform
 
 class _VectorQuantizer(Compressor):
     """What HSQ and PVQ share: the (M, dim) subvector grid, a (K, dim)
-    codebook (a file's, or an orthonormal one where K == dim) and the
-    min/max quantizer of the per-subvector scales u."""
+    codebook (a file's, one trained on ``codebook_device`` where no file
+    holds it, or an orthonormal one where K == dim) and the min/max
+    quantizer of the per-subvector scales u."""
 
     def __init__(self, size, shape, c_dim, k_bit, n_bit, random, codebook,
-                 codebook_seed, norm_segment_sizes):
+                 codebook_seed, norm_segment_sizes, codebook_device):
         super().__init__(size, shape)
         self.dim = subvector_dim(size, c_dim)
         self.k_bit = int(k_bit)
@@ -57,7 +58,7 @@ class _VectorQuantizer(Compressor):
             if self.K == self.dim:
                 codebook = orthonormal_codebook(self.dim, seed=codebook_seed)
             else:
-                codebook = get_codebook(self.dim, self.K)
+                codebook = get_codebook(self.dim, self.K, device=codebook_device)
         if codebook.shape != (self.K, self.dim):
             raise ValueError(f"codebook shape {codebook.shape} != {(self.K, self.dim)}")
         self.file_codebook = np.ascontiguousarray(codebook, dtype=np.float32)
@@ -133,13 +134,14 @@ class HSQCompressor(_VectorQuantizer):
         codebook_seed: int = 1,
         norm_segment_sizes: Optional[Tuple[int, ...]] = None,
         passes: int = 2,
+        codebook_device="cuda",
     ):
         if not (c_dim > 0 and k_bit >= 0 and n_bit > 0):
             raise ValueError(f"bad HSQ config c_dim={c_dim} k_bit={k_bit} n_bit={n_bit}")
         if passes not in (1, 2):
             raise ValueError(f"passes must be 1 or 2, got {passes}")
         super().__init__(size, shape, c_dim, k_bit, n_bit, random, codebook,
-                         codebook_seed, norm_segment_sizes)
+                         codebook_seed, norm_segment_sizes, codebook_device)
         self.passes = int(passes)
         # False: the row-major kernels and the raw codebook (gqx/compress/
         # vq.py:99-105)
@@ -229,11 +231,12 @@ class ProbabilisticVectorCompressor(_VectorQuantizer):
         codebook: Optional[np.ndarray] = None,
         codebook_seed: int = 1,
         norm_segment_sizes: Optional[Tuple[int, ...]] = None,
+        codebook_device="cuda",
     ):
         if not (c_dim > 0 and k_bit > 0 and n_bit > 0):
             raise ValueError(f"bad PVQ config c_dim={c_dim} k_bit={k_bit} n_bit={n_bit}")
         super().__init__(size, shape, c_dim, k_bit, n_bit, random, codebook,
-                         codebook_seed, norm_segment_sizes)
+                         codebook_seed, norm_segment_sizes, codebook_device)
         self.codewords = torch.from_numpy(self.file_codebook)
         # c+ = pinv(C^T), in float64 and cast, as gqx builds it (its :408-410)
         self.c_dagger = torch.from_numpy(np.linalg.pinv(
@@ -290,13 +293,15 @@ class ResidualCompressor(Compressor):
     in_order_mean = True
 
     def __init__(self, size, shape, c_dim, k_bit, n_bit, random=True,
-                 norm_segment_sizes=None):
+                 norm_segment_sizes=None, codebook_device="cuda"):
         super().__init__(size, shape)
         self.stages = (
             HSQCompressor(size, shape, c_dim, k_bit, n_bit, random,
-                          norm_segment_sizes=norm_segment_sizes, passes=2),
+                          norm_segment_sizes=norm_segment_sizes, passes=2,
+                          codebook_device=codebook_device),
             ProbabilisticVectorCompressor(size, shape, c_dim, k_bit, n_bit, random,
-                                          norm_segment_sizes=norm_segment_sizes),
+                                          norm_segment_sizes=norm_segment_sizes,
+                                          codebook_device=codebook_device),
         )
 
     def compress_batch(self, vecs: torch.Tensor, generator=None) -> Sig:

@@ -1,19 +1,23 @@
 """Data pipeline (counterpart of ``gqx/data/__init__.py``): raw readers +
-vectorized numpy augmentation + per-user batching.
+augmentation (the native C++ library or vectorized numpy) + per-user
+batching.
 
 Train batches carry a leading ``users`` axis of shape
 (num_users, batch_size, H, W, C), float32, with int32 labels: the layout
-and the bits of gqx's ``Pipeline(config, native=False)`` for the same seed
-and epoch, so the two compare array for array.  The runner moves them to
-the step's (U, B, C, H, W) on the device.
+and the bits of gqx's ``Pipeline`` for the same seed, epoch and augment,
+so the two compare array for array.  The runner moves them to the step's
+(U, B, C, H, W) on the device.
+
+The augment follows gqx's rule: the native library
+(``gqx_torch.data.native``, gqx's C++ built by the port) wherever it
+builds, but for ``tinyimg`` (its RandomResizedCrop is numpy's) or with
+``native=False``.  The two are not bit-equal: the native one draws its
+crops and flips from its own generator and normalizes by another float
+formula.
 
 Deviation from the reference (as in gqx): trailing partial global batches
 are dropped; the reference gives the remainder to the last user (its
 main.py:192-193).
-
-Only the numpy augment is ported.  gqx's optional C++ augment
-(``gqx/data/native.py``) is not bit-equal to it and has no counterpart
-here yet (ROADMAP Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from gqx_torch.data import native as native_lib
 from gqx_torch.data.datasets import load_dataset
 from gqx_torch.data.transforms import (
     TINYIMG_SIZE,
@@ -32,9 +37,13 @@ from gqx_torch.data.transforms import (
 
 
 class Pipeline:
-    """In-memory dataset + epoch iterators."""
+    """In-memory dataset + epoch iterators.
 
-    def __init__(self, config):
+    ``native``: None takes the native augment where its library builds,
+    True requires it (raises where it does not build), False takes numpy's.
+    ``augment`` records the one taken, ``"native"`` or ``"numpy"``."""
+
+    def __init__(self, config, native: Optional[bool] = None):
         self.dataset = config.dataset
         self.num_users = config.num_users
         self.batch_size = config.batch_size
@@ -44,6 +53,12 @@ class Pipeline:
         self.global_batch = self.batch_size * self.num_users
         self.steps_per_epoch = len(self.train_x) // self.global_batch
         self._seed = config.seed
+        self.augment = "numpy"
+        if native is not False and self.dataset != "tinyimg":
+            if native_lib.available():
+                self.augment = "native"
+            elif native:
+                raise RuntimeError("native=True, but the native data library did not build")
 
     def train_epoch(self, epoch: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Yield (x, y) with x: (num_users, batch, H, W, C) float32, y int32."""
@@ -52,7 +67,10 @@ class Pipeline:
         u, b = self.num_users, self.batch_size
         for step in range(self.steps_per_epoch):
             idx = order[step * self.global_batch: (step + 1) * self.global_batch]
-            x = augment_batch(self.train_x[idx], self.dataset, rng)
+            if self.augment == "native":
+                x = native_lib.augment_batch(self.train_x[idx], self.dataset, rng)
+            else:
+                x = augment_batch(self.train_x[idx], self.dataset, rng)
             y = self.train_y[idx].astype(np.int32)
             yield x.reshape((u, b) + x.shape[1:]), y.reshape(u, b)
 

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc, and its host library with g++,
+and load them with ctypes.
 
 Each ``gqx_torch/csrc/<name>.cu`` has a plain C interface and compiles in
 seconds into its own shared library under ``gqx_torch/_build/`` (listed in
@@ -6,6 +7,11 @@ seconds into its own shared library under ``gqx_torch/_build/`` (listed in
 source, of the headers beside it (``csrc/*.cuh``) and of the flags, so an
 edited source is rebuilt.  ``build()`` starts one nvcc per source, all at
 once.
+
+``load_host`` builds a host source, ``csrc/<name>.cc`` (the data
+pipeline's ``gqx_native.cc``), with g++ and gqx's flags for its native
+library (``native/Makefile``), into the same directory under the same
+naming rule; it needs no CUDA toolkit, so it builds on a CPU-only host.
 
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
@@ -35,6 +41,10 @@ SOURCES = ("hsq_encode", "hsq_decode_mean", "philox_uniform",
            "hsq_rows_decode", "per_user_dw",
            "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32", "per_user_dw_narrow_f32")
 
+#: gqx's flags for its native library (native/Makefile), so that the host
+#: library computes gqx's bits
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-fopenmp", "-shared")
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -50,15 +60,18 @@ def _nvcc() -> str:
     return path
 
 
+def _library_path(name: str, flags: Sequence[str], sources: Sequence[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
 def _target(name: str):
     src = os.path.join(CSRC_DIR, name + ".cu")
     headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [src] + headers:
-        with open(path, "rb") as f:
-            h.update(f.read())
-    digest = h.hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    return src, _library_path(name, NVCC_FLAGS, [src] + headers)
 
 
 def build(names: Sequence[str] = SOURCES) -> float:
@@ -99,6 +112,31 @@ def load(name: str) -> ctypes.CDLL:
             lib.gqx_error_string.argtypes = [ctypes.c_int]
             lib.gqx_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for ``csrc/<name>.cc``, built first with the
+    g++ on PATH if needed (not ``$CXX``, which may name a compiler without
+    OpenMP).  Raises ``RuntimeError`` where the compiler fails and
+    ``OSError`` where it is missing."""
+    key = name + ".cc"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            src = os.path.join(CSRC_DIR, name + ".cc")
+            path = _library_path(name, CXX_FLAGS, [src])
+            if not os.path.exists(path):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{path}.{os.getpid()}.tmp"
+                cmd = ["g++", *CXX_FLAGS, "-o", tmp, src]
+                out = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     timeout=300)
+                if out.returncode != 0:
+                    raise RuntimeError(f"{cmd[0]} failed for {name}.cc:\n"
+                                       f"{out.stdout.decode(errors='replace')}")
+                os.replace(tmp, path)
+            lib = _libs[key] = ctypes.CDLL(path)
     return lib
 
 

@@ -139,11 +139,12 @@ def _path_key(path: str):
 
 
 def plan_units(named_shapes: Sequence[Tuple[str, Tuple[int, ...]]],
-               paths: Mapping[str, str], config) -> UnitPlan:
+               paths: Mapping[str, str], config, device="cuda") -> UnitPlan:
     """Build the unit plan for named leaves (port layout) per config.
 
     ``paths`` maps each name to gqx's flattened leaf path
-    (``gqx_torch.convert.leaf_paths``); leaves are ordered by it."""
+    (``gqx_torch.convert.leaf_paths``); leaves are ordered by it.  A VQ
+    codebook that no file holds is trained on ``device``."""
     items = sorted(named_shapes, key=lambda ns: _path_key(paths[ns[0]]))
     names = [n for n, _ in items]
     shapes = [tuple(s) for _, s in items]
@@ -158,7 +159,8 @@ def plan_units(named_shapes: Sequence[Tuple[str, Tuple[int, ...]]],
 
     def leaf_unit(i):
         units.append(Unit((i,), (sizes[i],),
-                          make_compressor(name, sizes[i], (sizes[i],), config)))
+                          make_compressor(name, sizes[i], (sizes[i],), config,
+                                          device=device)))
 
     group_ok = (
         grouping != "none"
@@ -184,7 +186,7 @@ def plan_units(named_shapes: Sequence[Tuple[str, Tuple[int, ...]]],
                 if pad:
                     norm_segments = norm_segments + (pad // dim,)
             comp = make_compressor(name, total + pad, (total + pad,), config,
-                                   norm_segment_sizes=norm_segments)
+                                   norm_segment_sizes=norm_segments, device=device)
             units.append(Unit(tuple(aligned), tuple(sizes[i] for i in aligned),
                               comp, pad=pad))
         for i in ragged:

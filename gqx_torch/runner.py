@@ -5,7 +5,8 @@ Log cadence parity: evaluate ``log_epoch`` times per epoch and emit
 ``loss`` / ``accuracy(%)`` at global step iteration*(epoch-1)+batch_idx
 (reference main.py:183,197-211).
 
-Batches come from the numpy ``Pipeline`` in gqx's NHWC layout and go to
+Batches come from the ``Pipeline`` (gqx's augment rule: the native library
+where it builds; the one taken is printed once) in gqx's NHWC layout and go to
 the step's (U, B, C, H, W) on the device by a copy and a permute.  The
 model's initial weights are drawn from ``config.seed``, the step's
 stochastic rounding from a generator seeded with ``config.seed + 17`` (as
@@ -66,6 +67,8 @@ def run_training(
         epochs = epochs + 1
 
     pipeline = Pipeline(config)
+    if progress:
+        print(f"augment: {pipeline.augment}")
     model = create_model(config.network, config.num_classes, config.compute_dtype,
                          torch.Generator().manual_seed(config.seed),
                          image_shape=pipeline.image_shape)

@@ -55,7 +55,8 @@ class TrainState:
 
 def create_train_state(config, model: nn.Module, device="cuda") -> Tuple[TrainState, UnitPlan]:
     """Move ``model`` to ``device``, build the compression unit plan (in
-    gqx's leaf order), zero momentum and zero error-feedback state.  Returns
+    gqx's leaf order; a VQ codebook that no file holds is trained on
+    ``device``), zero momentum and zero error-feedback state.  Returns
     (state, plan).
 
     On a CUDA device with float32 compute, TF32 is switched off for cuDNN
@@ -72,7 +73,7 @@ def create_train_state(config, model: nn.Module, device="cuda") -> Tuple[TrainSt
     model.to(dev).train()
     params = dict(model.named_parameters())
     plan = plan_units([(n, tuple(p.shape)) for n, p in params.items()],
-                      leaf_paths(model), config)
+                      leaf_paths(model), config, device=dev)
     trace = {n: torch.zeros_like(p) for n, p in params.items()}
     agg_state = init_state(plan, config.num_users, config.ef, config.two_phase, dev)
     return TrainState(model, trace, agg_state), plan

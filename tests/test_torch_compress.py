@@ -19,6 +19,7 @@ from gqx.compress.scalar import TransposedScalarCompressor as GqxScalarT
 from gqx.config import GQConfig as GqxConfig
 from gqx.ops import pallas_hsq4
 from gqx.ops.pallas_hsq2 import bf16_exact_codebook as gqx_bf16_exact
+import gqx_torch.codebooks as port_codebooks
 from gqx_torch.codebooks import get_codebook, orthonormal_codebook
 from gqx_torch.compress import make_compressor
 from gqx_torch.compress.api import stochastic_increment, subvector_dim
@@ -55,11 +56,14 @@ def test_orthonormal_codebook_equal():
 
 def test_missing_codebook_raises(tmp_path, monkeypatch):
     """A codebook that no directory of the search path holds (K = 7 is
-    shipped for no dim) raises, naming the directories searched."""
+    shipped for no dim) is trained on the card by default: without one
+    that raises, and nothing is written to the cache."""
     for var in ("GQX_CODEBOOK_DIR", "GQX_REFERENCE_CODEBOOKS"):
         monkeypatch.delenv(var, raising=False)
-    with pytest.raises(FileNotFoundError, match=str(tmp_path)):
+    monkeypatch.setattr(port_codebooks, "CACHE_DIR", str(tmp_path / "cache"))
+    with pytest.raises(RuntimeError, match="CUDA device"):
         get_codebook(16, 7, search_dir=str(tmp_path))
+    assert not (tmp_path / "cache").exists()
 
 
 def test_subvector_dim_equal():

@@ -3,9 +3,10 @@
 Every transform from the same ``np.random.default_rng`` seed, every reader
 on the same fixture (files written to ``tmp_path`` in each standard
 layout, as tests/test_data.py writes them), and the Pipeline over one
-epoch against gqx's ``Pipeline(cfg, native=False)`` (gqx's C++ augment is
-not bit-equal to its numpy path and has no port).  Tolerance: none, the
-arrays are compared with ``assert_array_equal`` and dtypes must match.
+epoch with the numpy augment in both packages (``native=False``; the C++
+augment, which is not bit-equal to it, is held to gqx's in
+tests/test_torch_native.py).  Tolerance: none, the arrays are compared
+with ``assert_array_equal`` and dtypes must match.
 """
 
 import gzip
@@ -228,7 +229,9 @@ def test_pipeline_matches_gqx_over_an_epoch(name, tmp_path):
         kw["dataset_kwargs"] = SYNTHETIC
     else:
         FIXTURES[name](tmp_path, np.random.default_rng(0))
-    port, ref = Pipeline(GQConfig(**kw)), GqxPipeline(GqxConfig(**kw), native=False)
+    port = Pipeline(GQConfig(**kw), native=False)
+    ref = GqxPipeline(GqxConfig(**kw), native=False)
+    assert port.augment == "numpy"
     assert port.image_shape == ref.image_shape
     assert port.steps_per_epoch == ref.steps_per_epoch > 0
     for epoch in (1, 2):

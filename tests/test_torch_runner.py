@@ -1,9 +1,12 @@
 """gqx_torch's runner (and its metrics and checkpoint) against gqx's.
 
 All on the CPU (``device="cpu"``: the plain versions of the kernels), on
-FCN and the synthetic set cut to a few hundred images.  gqx builds its
-Pipeline without its C++ augment where the two are compared bit for bit
-(the augment is not bit-equal to the numpy path and has no port).
+FCN and the synthetic set cut to a few hundred images.  The runners are
+compared with the numpy augment in both packages (both native libraries
+patched away) and, each once more, at both packages' defaults, where both
+take their C++ augment (gqx's ``native/``, the port's
+``gqx_torch/csrc/gqx_native.cc``): the two augments are not bit-equal, so
+like is compared with like.
 """
 
 import csv
@@ -20,6 +23,7 @@ import torch
 import gqx.compress.vq as gqx_vq
 import gqx.data.native as gqx_native
 import gqx.runner as gqx_runner
+import gqx_torch.data.native as port_native
 import gqx_torch.runner as port_runner
 from gqx.config import GQConfig as GqxConfig
 from gqx.config import lr_at_epoch as gqx_lr_at_epoch
@@ -69,6 +73,19 @@ def _params(state):
     return {n: p.detach().clone() for n, p in state.model.state_dict().items()}
 
 
+def _augment(monkeypatch, which):
+    """Both packages on the numpy augment, or both at their defaults: the
+    native library in each, which must load."""
+    if which == "numpy":
+        monkeypatch.setattr(gqx_native, "available", lambda: False)
+        monkeypatch.setattr(port_native, "available", lambda: False)
+        return
+    if not gqx_native.available():
+        # a worker that read gqx's library while another built it: try again
+        monkeypatch.setattr(gqx_native, "_tried", False)
+    assert gqx_native.available() and port_native.available()
+
+
 @pytest.mark.parametrize("dataset", ["cifar10", "mnist", "tinyimg"])
 @pytest.mark.parametrize("quantizer", ["hsq", "sign"])
 def test_schedules_match_gqx(dataset, quantizer):
@@ -92,8 +109,17 @@ def test_metrics_csv_rows_match_gqx(tmp_path, monkeypatch):
     """The same (tag, step) rows as gqx's runner, in the same order, and
     the same wire accounting.  The schedule is cut to one epoch, which the
     reference's loop runs as two (range(1, epochs + 2)); log_epoch=2 gives
-    two eval points an epoch."""
-    monkeypatch.setattr(gqx_native, "available", lambda: False)
+    two eval points an epoch.  Both on the numpy augment."""
+    _metrics_csv_rows_match_gqx(tmp_path, monkeypatch, "numpy")
+
+
+def test_metrics_csv_rows_match_gqx_default_augment(tmp_path, monkeypatch):
+    """As above, both runners at their default augment (the native one)."""
+    _metrics_csv_rows_match_gqx(tmp_path, monkeypatch, "default")
+
+
+def _metrics_csv_rows_match_gqx(tmp_path, monkeypatch, augment):
+    _augment(monkeypatch, augment)
     monkeypatch.setattr(port_runner, "resolve_schedule", _one_epoch_schedule(resolve_schedule))
     monkeypatch.setattr(gqx_runner, "resolve_schedule",
                         _one_epoch_schedule(gqx_resolve_schedule))
@@ -208,8 +234,18 @@ def test_three_hsq_steps_match_gqx_runner(tmp_path, monkeypatch, interpret_kerne
     into the port through ``convert.from_jax``.  Parameters and momentum
     agree to 1e-5 relative (+1e-7): a subvector whose HSQ code or norm
     level differed would move its elements by a quantization step, so the
-    codes and levels agree as well."""
-    monkeypatch.setattr(gqx_native, "available", lambda: False)
+    codes and levels agree as well.  Both on the numpy augment."""
+    _three_hsq_steps_match_gqx_runner(monkeypatch, "numpy")
+
+
+def test_three_hsq_steps_match_gqx_runner_default_augment(tmp_path, monkeypatch,
+                                                          interpret_kernels):
+    """As above, both runners at their default augment (the native one)."""
+    _three_hsq_steps_match_gqx_runner(monkeypatch, "default")
+
+
+def _three_hsq_steps_match_gqx_runner(monkeypatch, augment):
+    _augment(monkeypatch, augment)
     kw = dict(network="fcn", dataset="synthetic", quantizer="hsq", c_dim=16, k_bit=8,
               n_bit=6, num_users=2, batch_size=8, test_batch_size=64, seed=5, random=False,
               eval_batch_count=1, dataset_kwargs=dict(num_train=64, num_test=64,
