@@ -53,12 +53,11 @@ def search_dirs(search_dir: Optional[str] = None) -> List[str]:
 
 @functools.lru_cache(maxsize=None)
 def get_codebook(dim: int, k: int, search_dir: Optional[str] = None,
-                 train_size: Optional[int] = None, cache: bool = True,
                  device="cuda") -> np.ndarray:
     """Unit-row (k, dim) float32 codebook: the first file of ``search_dirs``
     that holds a (k, dim) codebook, else one trained on ``device`` from
-    ``train_size`` samples (``$GQX_CODEBOOK_TRAIN_SIZE``, else 1M) and, with
-    ``cache``, written into ``CACHE_DIR``."""
+    ``$GQX_CODEBOOK_TRAIN_SIZE`` samples (else 1M) and written into
+    ``CACHE_DIR``."""
     fname = codebook_filename(dim, k)
     for d in search_dirs(search_dir):
         path = os.path.join(d, fname)
@@ -66,17 +65,15 @@ def get_codebook(dim: int, k: int, search_dir: Optional[str] = None,
             cb = fvecs_read(path)
             if cb.shape == (k, dim):
                 return normalize_rows(cb)[1].astype(np.float32)
-    if train_size is None:
-        train_size = int(os.environ.get(ENV_TRAIN_SIZE, DEFAULT_TRAIN_SIZE))
+    train_size = int(os.environ.get(ENV_TRAIN_SIZE, DEFAULT_TRAIN_SIZE))
     cb = normalize_rows(train_codebook(dim, k, train_size=train_size, device=device))[1]
     cb = cb.astype(np.float32)
-    if cache:
-        os.makedirs(CACHE_DIR, exist_ok=True)
-        path = os.path.join(CACHE_DIR, fname)
-        # a whole file or none: processes that train the same codebook race
-        tmp = f"{path}.{os.getpid()}.tmp"
-        fvecs_write(tmp, cb)
-        os.replace(tmp, path)
+    os.makedirs(CACHE_DIR, exist_ok=True)
+    path = os.path.join(CACHE_DIR, fname)
+    # a whole file or none: processes that train the same codebook race
+    tmp = f"{path}.{os.getpid()}.tmp"
+    fvecs_write(tmp, cb)
+    os.replace(tmp, path)
     return cb
 
 

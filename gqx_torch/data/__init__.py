@@ -39,9 +39,9 @@ from gqx_torch.data.transforms import (
 class Pipeline:
     """In-memory dataset + epoch iterators.
 
-    ``native``: None takes the native augment where its library builds,
-    True requires it (raises where it does not build), False takes numpy's.
-    ``augment`` records the one taken, ``"native"`` or ``"numpy"``."""
+    ``native``: False takes numpy's augment; otherwise the native one is
+    taken where its library builds, as gqx does.  ``augment`` records the one
+    taken, ``"native"`` or ``"numpy"``."""
 
     def __init__(self, config, native: Optional[bool] = None):
         self.dataset = config.dataset
@@ -54,11 +54,8 @@ class Pipeline:
         self.steps_per_epoch = len(self.train_x) // self.global_batch
         self._seed = config.seed
         self.augment = "numpy"
-        if native is not False and self.dataset != "tinyimg":
-            if native_lib.available():
-                self.augment = "native"
-            elif native:
-                raise RuntimeError("native=True, but the native data library did not build")
+        if native is not False and self.dataset != "tinyimg" and native_lib.available():
+            self.augment = "native"
 
     def train_epoch(self, epoch: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Yield (x, y) with x: (num_users, batch, H, W, C) float32, y int32."""

@@ -773,31 +773,23 @@ def test_cuda_max_pool_ties_match_cpu(cuda_device, dtype):
 
 
 def test_cuda_kmeans_matches_cpu(cuda_device):
-    """Lloyd on the card against the CPU in lockstep: each of 5 iterations
-    from the CPU's centroids on both.  Assignments differ only on near-ties
-    (top two logits within 1e-5); a centroid that no differing row touched
-    agrees within 1e-5, any other within 2 / its count per moved row (a
-    moved unit row shifts a mean of unit rows by at most that).  A codebook
-    trained on the card is finite float32."""
+    """Lloyd on the card against the CPU in lockstep, at a small size through
+    the check chip_smoke.py makes at 65,536 x 576 (``lloyd_lockstep``: each of
+    5 iterations from the CPU's centroids; assignments differ only on
+    near-ties, centroids by what a moved row moves).  A codebook trained on
+    the card is finite float32."""
+    import importlib.util
+    import pathlib
+
     from gqx_torch.codebooks import kmeans
 
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
     x = kmeans.unit_gaussian_samples(20_000, 24, torch.Generator().manual_seed(0), "cpu")
     c = x[torch.randperm(20_000, generator=torch.Generator().manual_seed(1))[:64]]
-    xd = x.to(cuda_device)
-    for _ in range(5):
-        a_cpu, a_card = kmeans.assign(x, c), kmeans.assign(xd, c.to(cuda_device)).cpu()
-        differ = a_card != a_cpu
-        if bool(differ.any()):
-            logits = x[differ] @ c.T - 0.5 * (c * c).sum(1)
-            top2 = logits.topk(2, dim=1).values
-            assert bool(((top2[:, 0] - top2[:, 1]) <= 1e-5).all())
-        want = kmeans.lloyd_from(x, c, 1)
-        got = kmeans.lloyd_from(xd, c.to(cuda_device), 1).cpu()
-        moved = torch.bincount(torch.cat([a_cpu[differ], a_card[differ]]), minlength=64)
-        count = torch.minimum(torch.bincount(a_cpu, minlength=64),
-                              torch.bincount(a_card, minlength=64)).clamp_min(1)
-        err = (got - want).abs().amax(1)
-        assert bool((err <= 1e-5 + 2.0 * moved / count).all())
-        c = want
+    differing, _, errs = chip_smoke.lloyd_lockstep(x, c, 5)
+    assert len(differing) == len(errs) == 5
     cb = kmeans.train_codebook(24, 64, train_size=20_000, iters=5, device=cuda_device)
     assert cb.shape == (64, 24) and cb.dtype == np.float32 and np.isfinite(cb).all()

@@ -135,16 +135,17 @@ def test_pipelines_at_their_defaults_match_gqx(tmp_path):
 
 
 def test_pipeline_native_rule(tmp_path, monkeypatch):
-    """tinyimg takes numpy's augment whatever ``native`` says; ``native=True``
-    raises where the library does not build, ``None`` then takes numpy's."""
+    """tinyimg takes numpy's augment whatever ``native`` says; only
+    ``native=False`` selects numpy's where the library builds, and where it
+    does not, ``None`` and ``True`` take numpy's, as gqx's do."""
     syn = dict(dataset="synthetic", num_users=2, batch_size=4,
                dataset_kwargs=dict(num_train=16, num_test=8, image_shape=(8, 8, 3)))
     assert Pipeline(GQConfig(**syn)).augment == "native"
     assert Pipeline(GQConfig(**syn), native=True).augment == "native"
+    assert Pipeline(GQConfig(**syn), native=False).augment == "numpy"
     monkeypatch.setattr(native, "available", lambda: False)
     assert Pipeline(GQConfig(**syn)).augment == "numpy"
-    with pytest.raises(RuntimeError):
-        Pipeline(GQConfig(**syn), native=True)
+    assert Pipeline(GQConfig(**syn), native=True).augment == "numpy"
     monkeypatch.undo()
     tiny = np.zeros((4, 8, 8, 3), np.uint8), np.zeros(4, np.int64)
     monkeypatch.setattr(data, "load_dataset", lambda *a, **k: (tiny, tiny))
