@@ -85,6 +85,18 @@
    P6's decode-mean.  Where a unit samples codes (PVQ, Maurey), every
    sample that lands in another slot than on the CPU must lie at a CDF
    boundary.
+   [mesh] Then the distributed backend (gqx_torch.parallel.collectives)
+   as one NCCL rank in process (a world of one: NCCL takes one rank a
+   card): PS logical, PS packed, PS packed with EF and two-phase, the
+   chain ring and the segmented ring at P1's width, 1 + --steps steps each
+   beside the sim step of the same configuration from the same state,
+   batch and seed (cuDNN deterministic for the phase).  All but the
+   segmented ring must end bit-equal to the sim step (parameters, BN
+   statistics, momentum, EF); the segmented ring's aggregate of one more
+   step is held to its CPU plain run (gloo, W = 1) with the near-tie rule.
+   Launches are counted as the paths' are; ms/step against the sim's,
+   device ms, and for the packed runs pack, all_gather and unpack ms per
+   user and step and the gathered bytes, which must be P1's wire_bytes.
 5. Compares folded and looped per-user gradients from the same weights and
    batch on the card: ResNet-18 float32, ResNet-50, VGG-16 and DenseNet-BC
    bf16, with the conv weight gradient's launches of each folded run
@@ -107,6 +119,9 @@
    step), the LeNet CNN for 8 steps on MNIST-format files made from the
    seed (no K7), and the verify skill's FCN drive, which must end at >= 99%
    test accuracy; each with one encode, uniforms and decode-mean a step.
+   [cli mesh] Then the canonical command line with --backend mesh --wire
+   packed, one NCCL process over a TCP rendezvous on localhost: 16 steps,
+   [cli]'s launches a step.
    [cli c256] Then ResNet-50 at c_dim 256 / k_bit 8 and the default
    threshold, float32, one epoch, with an empty codebook cache: the run
    trains the stem's codebook on the card, and launches 2 wide encodes, 2
@@ -148,6 +163,8 @@ import sys
 import tempfile
 import time
 
+from gqx_torch.utils.profiling import PAD_CALLS, PAD_CYCLES, is_pad, pad_window
+
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 tensor FLOP/s,
 # fp32 (non-tensor) FLOP/s, used as the scalar-pipe rate for integer work
 HBM_BPS = 3.35e12
@@ -186,24 +203,11 @@ def cuda_ms(fn, n: int, warmup: int = 1) -> float:
 # mostly up to some nine (gqx_torch/scripts/profiler_probe.py: a one-kernel
 # function showed 0 of 2, 0 or 5 of 5, 13 of 20 events; a plain version 51
 # of 60), now and then a whole window of 69 (run I: three in a row, as the 9
-# us pack of run F1).  Each window opens with PAD_CALLS launches of ATen's
-# spin kernel, synchronised and left out of the sums; a window that shows
+# us pack of run F1).  Each window opens with PAD_CALLS spins
+# (gqx_torch/utils/profiling.py), left out of the sums; a window that shows
 # none of them may have lost events of its own, and is profiled again with
-# spins ten times longer
-PAD_CALLS = 64
-PAD_KEY = "spin_kernel"
-# clock cycles of one spin (about 50 us at 1.98 GHz), then of each retry's
-PAD_CYCLES = (100_000, 1_000_000, 10_000_000)
-# the spin kernels seen per window, over the run
+# spins ten times longer.  The spin kernels seen per window, over the run:
 PADS_SEEN = []
-
-
-def pad_window(cycles: int = PAD_CYCLES[0]):
-    import torch
-
-    for _ in range(PAD_CALLS):
-        torch.cuda._sleep(cycles)
-    torch.cuda.synchronize()
 
 
 def device_rows(prof):
@@ -215,9 +219,9 @@ def device_rows(prof):
     rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
             for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    pads = sum(c for _, c, k in rows if PAD_KEY in k)
+    pads = sum(c for _, c, k in rows if is_pad(k))
     PADS_SEEN.append(pads)
-    return [r for r in rows if PAD_KEY not in r[2]], pads
+    return [r for r in rows if not is_pad(r[2])], pads
 
 
 def device_ms(fn, n: int) -> float:
@@ -1320,10 +1324,11 @@ def per_user_grads(cfg, state, plan, x, y):
     return user_grads(state.model, plan.names, x, y)
 
 
-def device_profile(state, step, batch, ms_step):
+def device_profile(state, step, batch, ms_step, top: int = 10):
     """Device time of one step from torch.profiler (CUDA activity): the sum
     of kernel self times, its share of the unprofiled step time, and the
-    kernels that take most of it."""
+    ``top`` kernels that take most of it.  Returns the device ms (None
+    where the window showed none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1337,12 +1342,13 @@ def device_profile(state, step, batch, ms_step):
     if device_ms == 0.0 or not pads:
         log(f"[profile] the profiler showed {pads} of its {PAD_CALLS} leading spin kernels and "
             f"{device_ms} ms of device time: device busy share not measured")
-        return
+        return None
     log(f"[profile] device kernel time {device_ms:.2f} ms per step = "
         f"{100 * device_ms / ms_step:.1f}% of the {ms_step:.2f} ms step; "
         f"{sum(r[1] for r in rows)} kernel launches per step")
-    for t, n, key in sorted(rows, reverse=True)[:10]:
+    for t, n, key in sorted(rows, reverse=True)[:top]:
         log(f"[profile]   {t / 1e3:8.3f} ms  x{n:<5d} {key[:90]}")
+    return device_ms
 
 
 def device_split_phase(name, state, step, batch, ms_step):
@@ -2451,6 +2457,239 @@ def native_phase(seed: int, card: str):
         f"{augment} | {card}")
 
 
+# [mesh]: the distributed backend (gqx_torch.parallel.collectives) as one NCCL
+# rank on the card, each run from P1's state, batch and seed, against the sim
+# step of the same configuration; launches per step and compressed unit, as
+# PATHS has them (the segmented ring at W = 1: one chunk encode, its
+# uniforms, the gathered chunk's decode)
+MESH_PATHS = {
+    "mesh ps logical": (dict(backend="mesh"), PATHS["P1"][1]),
+    "mesh ps packed": (dict(backend="mesh", wire="packed"), PATHS["P1"][1]),
+    "mesh ps packed ef": (dict(backend="mesh", wire="packed", ef=True, two_phase=True),
+                          PATHS["P2"][1]),
+    "mesh ring": (dict(backend="mesh", mode="ring"), PATHS["P3"][1]),
+    "mesh ring segmented": (dict(backend="mesh", mode="ring", ring_mode="segmented"),
+                            dict(hsq_encode=1, philox_uniform=1, hsq_decode=1)),
+}
+# the packed payload of P1's plan a user and step (PERF.md section 2)
+P1_WIRE_BYTES = 2_847_376
+
+
+def _state_tensors(state):
+    """Every tensor of a training state, by name."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"trace.{k}": v for k, v in state.trace.items()})
+    for group in ("ef", "server_ef"):
+        for i, t in enumerate(getattr(state.agg_state, group) or ()):
+            out[f"{group}.{i}"] = t
+    return out
+
+
+def _first_difference(got, want):
+    """(name, max |difference|) of the first tensor that is not bit-equal,
+    or None."""
+    import torch
+
+    a, b = _state_tensors(got), _state_tensors(want)
+    if a.keys() != b.keys():
+        return "the state's tensors", None
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            return k, float((a[k].float() - b[k].float()).abs().max())
+    return None
+
+
+def wire_timing(name, cfg, state, plan, batch, seed):
+    """One step's signatures of every unit packed, gathered and unpacked as
+    the packed PS step does: ms per user and step of each stage (device
+    time where the stage launches kernels of its own, CUDA events), and the
+    bytes the gather moved per user, held to ``plan.wire_bytes()``."""
+    import torch
+
+    from gqx_torch.compress.api import UserRows
+    from gqx_torch.parallel import collectives
+
+    x, y, _ = batch
+    users = cfg.num_users
+    _, grads = per_user_grads(cfg, state, plan, x, y)
+    sigs = [u.compressor.compress_batch(g, UserRows(torch.Generator().manual_seed(seed), 0, users))
+            for u, g in zip(plan.units, plan.pack(grads))]
+    del grads
+
+    def pack():
+        return [collectives.pack_rows(u.compressor, sig) for u, sig in zip(plan.units, sigs)]
+
+    packed = pack()
+
+    def gather():
+        return [collectives.gather_rows(rows, 1) for rows, _ in packed]
+
+    gathered = gather()
+
+    def unpack():
+        return [collectives.unpack_rows(u.compressor, rows, layout)
+                for u, rows, (_, layout) in zip(plan.units, gathered, packed)]
+
+    shipped = sum(4 * rows.shape[1] for rows, _ in packed)
+    if shipped != plan.wire_bytes() or shipped != P1_WIRE_BYTES:
+        raise AssertionError(f"{name}: all_gather moved {shipped} B a user and step, "
+                             f"wire_bytes {plan.wire_bytes()}, P1's {P1_WIRE_BYTES}")
+    for u, sig, back in zip(plan.units, sigs, unpack()):
+        if not _bit_equal(back, sig):
+            raise AssertionError(f"{name}: a unit of {u.size} did not unpack bit for bit")
+    times = {"pack_device": device_ms(pack, 3) / users, "pack_events": cuda_ms(pack, 3) / users,
+             "all_gather_events": cuda_ms(gather, 3) / users,
+             "unpack_device": device_ms(unpack, 3) / users,
+             "unpack_events": cuda_ms(unpack, 3) / users}
+    return shipped, times
+
+
+def segmented_reference(cfg, state, plan, batch, seed):
+    """One more step's per-user gradients and their segmented-ring aggregate
+    on the card (one rank), kept on the host for ``segmented_check``."""
+    import torch
+
+    from gqx_torch.parallel import collectives
+
+    x, y, _ = batch
+    _, grads = per_user_grads(cfg, state, plan, x, y)
+    comps = collectives.segment_compressors(cfg, plan, 1, x.device)
+    chunks = collectives.segment_chunks(plan, 1)
+    out = []
+    for ui, g in enumerate(plan.pack(grads)):
+        card = collectives._ring_unit_segmented(comps[ui], chunks[ui], g, None, 1.0,
+                                                seed + ui, 0, 1)
+        out.append((g.cpu(), card.cpu()))
+    torch.cuda.synchronize()
+    return out
+
+
+def segmented_check(cfg, plan, ref):
+    """The segmented ring's aggregates of ``segmented_reference`` recomputed
+    on the CPU through the plain versions (a gloo group of one) from the
+    same gradients and seeds: HSQ units may differ only on near-tie
+    subvectors (at most 1e-3 of them, as ``aggregate_reference``), the
+    identity unit within 1e-6 of the users' summed magnitudes."""
+    import torch.distributed as dist
+
+    from gqx_torch.parallel import collectives, distributed
+
+    distributed.maybe_initialize(device="cpu", world_of_one=True)
+    try:
+        comps = collectives.segment_compressors(cfg, plan, 1, "cpu")
+        chunks = collectives.segment_chunks(plan, 1)
+        seed = ref[1]
+        for ui, (g, card) in enumerate(ref[0]):
+            cpu = collectives._ring_unit_segmented(comps[ui], chunks[ui], g, None, 1.0,
+                                                   seed + ui, 0, 1)
+            comp = comps[ui]
+            if type(comp).__name__ == "HSQCompressor":
+                bad, total = _subvectors_off(card, cpu, comp.dim), card.numel() // comp.dim
+                limit, what = 1e-3 * total, "subvectors"
+            else:
+                tol = 1e-6 * g.float().abs().sum(0) + 1e-30
+                bad, total = int(((card - cpu).abs() > tol).sum()), card.numel()
+                limit, what = 0, "elements"
+            log(f"[mesh ring segmented] {type(comp).__name__} chunk of {chunks[ui]}: {bad} of "
+                f"{total} {what} differ from the CPU plain run (gloo, W=1)")
+            if bad > limit:
+                raise AssertionError(f"mesh ring segmented: {bad} of {total} {what} differ from "
+                                     "the CPU plain run")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(seed: int, steps: int, entries, card: str):
+    """[mesh]: each run of MESH_PATHS at P1's full width (ResNet-50 8 x 32,
+    bf16, 1 + ``steps`` steps) as one NCCL rank in process, beside the sim
+    step of the same configuration from the same state, batch and seed.
+    PS logical, PS packed (with and without EF and two-phase) and the chain
+    ring must end bit-equal to the sim step (parameters, BN statistics,
+    momentum, EF); where one does not, the sim step is run again to tell a
+    fault from a step that does not repeat.  The segmented ring is held to
+    its own CPU plain run.  Prints ms per step against the sim's, device
+    ms, and for the packed runs pack, all_gather and unpack ms per user and
+    step and the bytes gathered.  cuDNN is deterministic for the phase."""
+    import torch
+    import torch.distributed as dist
+
+    from gqx_torch.parallel import distributed
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    seg_ref = None
+    distributed.maybe_initialize(device="cuda", world_of_one=True)
+    try:
+        log(f"[mesh] a {dist.get_backend()} group of {dist.get_world_size()} rank on "
+            f"{torch.cuda.get_device_name(0)} | {card}")
+        for name, (extra, per_step) in MESH_PATHS.items():
+            cfg = canonical_config(**extra)
+            sim_cfg = canonical_config(**{k: v for k, v in extra.items()
+                                          if k not in ("backend", "wire", "ring_mode")})
+            sim_ms, sim_losses, sim_state, *_ = run_steps(sim_cfg, seed, steps)
+            ms, losses, state, plan, step, batch, launches = run_steps(cfg, seed, steps, counters)
+            check_launches(name, cfg, plan, steps, launches, per_step, entries)
+            if cfg.ring_mode == "segmented":
+                verdict = "held to its CPU plain run below"
+            else:
+                diff = _first_difference(state, sim_state)
+                if diff is not None or losses != sim_losses:
+                    _, again, again_state, *_ = run_steps(sim_cfg, seed, steps)
+                    repeat = _first_difference(again_state, sim_state)
+                    raise AssertionError(
+                        f"{name}: {diff} differs from the sim step (losses {losses} against "
+                        f"{sim_losses}); the sim step run again differs from itself in "
+                        f"{repeat} (None: it repeats, so the distributed step is at fault)")
+                verdict = "parameters, BN statistics, momentum and EF bit-equal to the sim step"
+            # the profiled step and the references below take the state on
+            dev_ms = device_profile(state, step, batch, ms, top=3)
+            log(f"[{name}] {ms:.2f} ms/step (sim {sim_ms:.2f}) over {steps} steps, device "
+                f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms/step, losses "
+                f"{[round(v, 4) for v in losses]}; {verdict}")
+            if cfg.ring_mode == "segmented":
+                seg_ref = (segmented_reference(cfg, state, plan, batch, seed), seed)
+                seg_cfg, seg_plan = cfg, plan
+            if cfg.wire == "packed":
+                shipped, times = wire_timing(name, cfg, state, plan, batch, seed)
+                log(f"[{name}] all_gather moved {shipped} B a user and step = wire_bytes "
+                    f"{plan.wire_bytes()}; ms per user and step: "
+                    + json.dumps({k: round(v, 4) for k, v in times.items()}))
+            elif cfg.mode == "ps":
+                log(f"[{name}] all_reduce moved {4 * sum(u.size for u in plan.units)} B a rank "
+                    "and step (the float32 means)")
+            del state, sim_state, step, batch
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        cudnn.deterministic, cudnn.benchmark = saved
+    segmented_check(seg_cfg, seg_plan, seg_ref)
+
+
+def cli_mesh_phase(entries):
+    """[cli mesh]: the [cli] drive's command line on the distributed backend
+    with the packed wire, one NCCL process over a TCP rendezvous on
+    localhost: 16 steps and an eval, the [cli] drive's launches a step."""
+    import shutil
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logdir = tempfile.mkdtemp(prefix="gqx_torch_cli_mesh_")
+    try:
+        argv = CLI_FLAGS + ["--epochs", "1", "--logdir", logdir, "--backend", "mesh",
+                            "--wire", "packed", "--coordinator-address", f"127.0.0.1:{port}",
+                            "--num-processes", "1", "--process-id", "0"]
+        per_step = {**dw_per_step("resnet50", "float32"), **HSQ_PER_STEP}
+        state, _, _ = cli_run(argv, "cli mesh", CLI_STEPS_PER_EPOCH, per_step, entries)
+        if state.step != CLI_STEPS_PER_EPOCH:
+            raise AssertionError(f"cli mesh: the run ended at step {state.step}")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2539,6 +2778,8 @@ def paths_and_phases(args, entries, card: str, cache_root: str):
             device_profile(state, step, batch, ms)
         del state, step, batch
         torch.cuda.empty_cache()
+    mesh_phase(args.seed, args.steps, entries, card)
+    torch.cuda.empty_cache()
     for kernel, count in wide_rows_path(args.seed).items():
         entries[kernel]["launches"] += count
         entries[kernel]["launches_by_path"]["P6"] = count
@@ -2558,6 +2799,8 @@ def paths_and_phases(args, entries, card: str, cache_root: str):
     comparison_phase(args.seed, args.steps, entries)
     torch.cuda.empty_cache()
     runner_ms = cli_phase(entries, args.seed)
+    torch.cuda.empty_cache()
+    cli_mesh_phase(entries)
     torch.cuda.empty_cache()
     cli_c256_phase(entries, os.path.join(cache_root, "cli"), card)
     torch.cuda.empty_cache()

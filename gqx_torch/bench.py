@@ -154,15 +154,20 @@ def device_split(step, model, n: int):
     op): device ms per step}).  Hand-written kernels are counted from the
     device events by name; every other kernel through the CPU op that
     launched it; what no op holds is unattributed (were a kernel held
-    twice, it would come out negative).  A window that comes
-    back without device events is profiled again, twice at most."""
+    twice, it would come out negative).  The window opens with spin
+    kernels, left out of every sum (``utils.profiling``), and is profiled
+    again with longer spins where none of them shows; it raises after
+    three such windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from gqx_torch.utils.profiling import PAD_CYCLES, is_pad, pad_window
+
     handles = mark_bn_forward(model)
     try:
-        for _ in range(3):
+        for cycles in PAD_CYCLES:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                pad_window(cycles)
                 for _ in range(n):
                     step()
                 torch.cuda.synchronize()
@@ -171,11 +176,14 @@ def device_split(step, model, n: int):
             # BN_FORWARD ranges (user annotations), which overlap kernels
             device = [e for e in events if e.device_type == DeviceType.CUDA
                       and not getattr(e, "is_user_annotation", False) and e.name != BN_FORWARD]
+            pads = sum(1 for e in device if is_pad(e.name))
+            device = [e for e in device if not is_pad(e.name)]
             total = sum(e.time_range.elapsed_us() for e in device)
-            if total > 0:
+            if pads and total > 0:
                 break
         else:
-            raise RuntimeError("the profiler saw no device time in three windows")
+            raise RuntimeError(f"the profiler lost the device events of {len(PAD_CYCLES)} "
+                               "windows")
     finally:
         for h in handles:
             h.remove()
@@ -190,7 +198,7 @@ def device_split(step, model, n: int):
             continue
         ops = op_chain(e)
         for k in e.kernels:
-            if k.name == BN_FORWARD:
+            if k.name == BN_FORWARD or is_pad(k.name):
                 continue
             family = classify(k.name, ops)
             if family in FAMILIES:

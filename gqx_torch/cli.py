@@ -10,8 +10,18 @@ Example (the canonical HSQ config, reference README.md:3-8):
 It trains on the CUDA device; ``--platform cpu`` (gqx's flag) runs the
 plain PyTorch path on the CPU instead.  Without a CUDA device and without
 ``--platform cpu`` it raises: nothing falls back to the CPU.  A flag whose
-value the port does not implement (``--backend mesh``, ``--wire packed``,
-the multi-process flags) raises as well.
+value the port does not implement (``--use-pallas 0``, ``--hsq-passes 6``)
+raises as well.
+
+``--backend mesh`` trains on the distributed backend
+(``gqx_torch.parallel.collectives``): ``--coordinator-address``,
+``--num-processes`` and ``--process-id`` open the process group (NCCL on
+the card, gloo with ``--platform cpu``; gqx/cli.py:145), torchrun's
+environment opens it without them, and with neither it is a group of one
+process.  Two processes on the CPU:
+    python -m gqx_torch.cli ... --backend mesh --wire packed --platform cpu \
+        --coordinator-address 127.0.0.1:29511 --num-processes 2 --process-id 0
+and the same with ``--process-id 1``.
 """
 
 from __future__ import annotations
@@ -51,9 +61,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--two-phase", action="store_true", default=False)
     # gqx extensions
     p.add_argument("--backend", type=str, default="sim", choices=["sim", "mesh"],
-                   help="the port implements sim only")
+                   help="sim: one process simulates every user; mesh: the distributed "
+                        "backend (torch.distributed)")
     p.add_argument("--wire", type=str, default="logical", choices=["logical", "packed"],
-                   help="the port implements logical only")
+                   help="mesh PS: all-reduce the decoded means, or all-gather the packed "
+                        "payloads")
     p.add_argument("--compute-dtype", type=str, default="float32")
     p.add_argument("--data-dir", type=str, default="./data")
     p.add_argument("--use-pallas", type=int, default=None,
@@ -78,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", type=str, default=None,
                    help="write a torch.profiler trace of a few steady-state steps here")
     p.add_argument("--profile-steps", type=int, default=5)
-    # gqx's multi-process runtime: not implemented by the port
+    # gqx's multi-process runtime (the distributed backend)
     p.add_argument("--coordinator-address", type=str, default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -139,15 +151,21 @@ def device_from_args(args) -> str:
 def main(argv=None):
     """Parse ``argv``, train; returns run_training's (state, accuracy)."""
     args = build_parser().parse_args(argv)
-    if args.coordinator_address is not None or args.num_processes not in (None, 1) \
-            or args.process_id not in (None, 0):
-        raise ValueError("gqx_torch: multi-process training (--coordinator-address, "
-                         "--num-processes, --process-id) is not implemented by the port")
     device = device_from_args(args)
     cfg = config_from_args(args)
+    import torch.distributed as dist
+
+    from gqx_torch.parallel.distributed import maybe_initialize
     from gqx_torch.runner import run_training
 
-    return run_training(cfg, epochs_override=args.epochs, resume=args.resume, device=device)
+    opened = maybe_initialize(args.coordinator_address, args.num_processes, args.process_id,
+                              device, world_of_one=cfg.backend == "mesh")
+    try:
+        return run_training(cfg, epochs_override=args.epochs, resume=args.resume,
+                            device=device)
+    finally:
+        if opened:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -10,6 +10,12 @@ one on its ``device`` (``gqx_torch.codebooks.kmeans``) and writes it into
 ``codebooks/learned_codebook``, the port never writes the shipped
 codebooks.  Rows are L2-normalized at load and after training, as the
 reference does.
+
+Under an open process group of several ranks (the distributed backend),
+rank 0 alone finds or trains a codebook and broadcasts it, so every rank
+encodes and decodes with the same bytes: k-means on the card differs from
+run to run in its last bits (``index_add_``'s atomics).  Every rank asks
+for the same codebooks in the same order, as it builds the same plan.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from gqx_torch.codebooks.kmeans import DEFAULT_TRAIN_SIZE, train_codebook
 from gqx_torch.utils.vecs_io import fvecs_read, fvecs_write, normalize_rows
@@ -57,7 +65,21 @@ def get_codebook(dim: int, k: int, search_dir: Optional[str] = None,
     """Unit-row (k, dim) float32 codebook: the first file of ``search_dirs``
     that holds a (k, dim) codebook, else one trained on ``device`` from
     ``$GQX_CODEBOOK_TRAIN_SIZE`` samples (else 1M) and written into
-    ``CACHE_DIR``."""
+    ``CACHE_DIR``.  With several ranks, rank 0's, broadcast."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return _find_or_train(dim, k, search_dir, device)
+    # the group's backend says where its tensors live: NCCL's on the card
+    on = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    if dist.get_rank() == 0:
+        cb = torch.from_numpy(_find_or_train(dim, k, search_dir, device)).to(on)
+    else:
+        cb = torch.empty((k, dim), dtype=torch.float32, device=on)
+    dist.broadcast(cb, 0)
+    return cb.cpu().numpy()
+
+
+def _find_or_train(dim: int, k: int, search_dir: Optional[str], device) -> np.ndarray:
     fname = codebook_filename(dim, k)
     for d in search_dirs(search_dir):
         path = os.path.join(d, fname)

@@ -9,6 +9,7 @@ batched API works on a leading users axis.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -57,6 +58,13 @@ class Compressor:
     #: add the users one by one in ``users_mean`` (see there)
     in_order_mean = False
 
+    @property
+    def seed_draws(self) -> int:
+        """How many seeds one ``compress_batch`` draws from its generator
+        (``draw_seed`` calls): a chain-ring rank skips the draws of the hops
+        that other ranks make (``gqx_torch.parallel.collectives``)."""
+        return 0
+
     def users_mean(self, dec: torch.Tensor) -> torch.Tensor:
         """Mean over the leading users axis of decoded values, as the server
         reduce and the error-feedback round trip take it.  One reduction,
@@ -103,27 +111,63 @@ def subvector_dim(size: int, c_dim: int, max_tries: int = 10) -> int:
     return dim
 
 
-def draw_seed(generator: Optional[torch.Generator]) -> int:
+class UserRows:
+    """The draws of users ``[first, first + count)`` of a users' batch: a
+    view of ``generator`` that a compressor takes in its place.  Seeds come
+    from ``generator`` as for the whole batch; a batch's uniforms
+    (``batch_uniform``) are those rows of the whole batch's draw, bit for
+    bit.  A rank of the distributed backend compresses its own users with
+    it, so its users get the uniforms they get in the sim backend's step,
+    and no two ranks' users share any."""
+
+    def __init__(self, generator: Optional[torch.Generator], first: int, count: int):
+        self.generator = generator
+        self.first = int(first)
+        self.count = int(count)
+
+
+def draw_seed(generator) -> int:
     """A 62-bit seed for the counter-based uniforms, drawn from ``generator``
-    on the host (no device synchronisation)."""
+    (a ``torch.Generator`` or a ``UserRows`` view of one) on the host (no
+    device synchronisation)."""
+    if isinstance(generator, UserRows):
+        generator = generator.generator
     hi, lo = torch.randint(0, 1 << 31, (2,), generator=generator).tolist()
     return (hi << 31) | lo
 
 
+def batch_uniform(generator, shape: Tuple[int, ...], device) -> torch.Tensor:
+    """U[0, 1) float32 of ``shape`` (users, ...) from one seed of
+    ``generator``.  Under a ``UserRows`` view the users are rows ``first``
+    to ``first + count`` of the whole batch's stream: element e of user a
+    is element ``a * n + e`` of the stream, n the values a user, which the
+    counter-based generator reaches directly (counter ``(a * n) // 4``, its
+    first ``(a * n) % 4`` values dropped)."""
+    seed = draw_seed(generator)
+    shape = tuple(shape)
+    if not isinstance(generator, UserRows):
+        return uniform(seed, 0, shape, device)
+    if shape[0] != generator.count:
+        raise ValueError(f"a draw for {shape[0]} users from a view of {generator.count}")
+    start = generator.first * math.prod(shape[1:])
+    skip = start % 4
+    flat = uniform(seed, start // 4, (skip + math.prod(shape),), device)
+    return flat[skip:].reshape(shape)
+
+
 def stochastic_increment(
-    scaled: torch.Tensor, floored: torch.Tensor,
-    generator: Optional[torch.Generator],
+    scaled: torch.Tensor, floored: torch.Tensor, generator,
 ) -> torch.Tensor:
     """l += (scaled - l > U(0,1)) — the reference's stochastic rounding
     (reference qsgd_compressor.py:55-61).  Returns int32 increments.
 
     The float32 uniforms come from the counter-based Philox generator of
-    ``gqx_torch.ops.rand``, seeded from ``generator``: one kernel launch for
-    every user on a CUDA device, its plain version on the CPU.  gqx draws
+    ``gqx_torch.ops.rand``, seeded from ``generator`` (``batch_uniform``):
+    one kernel launch for every user on a CUDA device, its plain version on the CPU.  gqx draws
     small or non-float32 inputs with threefry instead (gqx/compress/api.py:
     143), a condition of its Pallas tiling that has no counterpart here."""
     probabilities = scaled - floored.to(scaled.dtype)
-    r = uniform(draw_seed(generator), 0, tuple(floored.shape), scaled.device)
+    r = batch_uniform(generator, tuple(floored.shape), scaled.device)
     return (probabilities > r).to(torch.int32)
 
 

@@ -104,6 +104,10 @@ class QSGDCompressor(Compressor):
     decompress_batch = decompress
 
     @property
+    def seed_draws(self) -> int:
+        return int(self.random)
+
+    @property
     def wire_bits(self) -> int:
         # 1 sign + n_bit level per coordinate + a 32-bit norm per bucket
         return self.size * (1 + self.n_bit) + 32 * self.M
@@ -239,6 +243,10 @@ class ProbabilisticScalarCompressor(Compressor):
     # both work on the last axis, so a users axis needs nothing more
     compress_batch = compress
     decompress_batch = decompress
+
+    @property
+    def seed_draws(self) -> int:
+        return int(self.random)
 
     @property
     def wire_bits(self) -> int:

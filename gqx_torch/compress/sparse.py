@@ -13,8 +13,7 @@ from typing import Tuple
 
 import torch
 
-from gqx_torch.compress.api import Compressor, Sig, draw_seed
-from gqx_torch.ops.rand import uniform
+from gqx_torch.compress.api import Compressor, Sig, batch_uniform
 
 
 class TopKCompressor(Compressor):
@@ -96,6 +95,9 @@ class MaureySparsificationCompressor(Compressor):
         self.idx_bits = 32 if size > 65536 else 16
         self.k = max(1, 32 * size // ((self.idx_bits + 1) * self.cr))
 
+    #: one draw: the samples' uniforms
+    seed_draws = 1
+
     def sample(self, vecs: torch.Tensor, r: torch.Tensor) -> Sig:
         """vecs (U, *shape), r (U, k) uniforms -> the signature: each code is
         the first index whose CDF reaches its r, clipped to the last index;
@@ -111,7 +113,7 @@ class MaureySparsificationCompressor(Compressor):
         "signs": (U, k)}; one uniform launch for every user."""
         if generator is None:
             raise ValueError("maurey samples its codes: it needs a generator")
-        r = uniform(draw_seed(generator), 0, (vecs.shape[0], self.k), vecs.device)
+        r = batch_uniform(generator, (vecs.shape[0], self.k), vecs.device)
         return self.sample(vecs, r)
 
     def decompress_batch(self, sig: Sig) -> torch.Tensor:

@@ -30,13 +30,12 @@ import numpy as np
 import torch
 
 from gqx_torch.codebooks import get_codebook, orthonormal_codebook
-from gqx_torch.compress.api import (Compressor, Sig, code_dtype, draw_seed,
+from gqx_torch.compress.api import (Compressor, Sig, batch_uniform, code_dtype,
                                     subvector_dim)
 from gqx_torch.compress.scalar import ProbabilisticScalarCompressor
 from gqx_torch.ops import hsq as hsq_ops
 from gqx_torch.ops import hsq_rows
 from gqx_torch.ops.hsq_prep import bf16_exact_codebook, supports_flat
-from gqx_torch.ops.rand import uniform
 
 
 class _VectorQuantizer(Compressor):
@@ -108,6 +107,11 @@ class _VectorQuantizer(Compressor):
 
     def decompress_batch(self, sig: Sig) -> torch.Tensor:
         return self._decode(sig).reshape((sig["codes"].shape[0],) + self.shape)
+
+    @property
+    def seed_draws(self) -> int:
+        """The norm quantizer's draw (PVQ adds its samples')."""
+        return self.norm_compressor.seed_draws if self.compressed_norm else 0
 
     @property
     def wire_bits(self) -> int:
@@ -275,7 +279,7 @@ class ProbabilisticVectorCompressor(_VectorQuantizer):
         if generator is None:
             raise ValueError("PVQ samples its codes: it needs a generator")
         users = vecs.shape[0]
-        r = uniform(draw_seed(generator), 0, (users, self.M), vecs.device)
+        r = batch_uniform(generator, (users, self.M), vecs.device)
         u, codes = self.encode(vecs, r)
         return self._sig(u, codes, generator)
 
@@ -283,6 +287,10 @@ class ProbabilisticVectorCompressor(_VectorQuantizer):
         codes, u = sig["codes"].contiguous(), self._u(sig).contiguous()
         rows = hsq_rows.hsq_decode(codes, u, self.codebook(u.device))
         return rows.reshape(codes.shape[:-1] + (self.size,))
+
+    @property
+    def seed_draws(self) -> int:
+        return 1 + super().seed_draws
 
 
 class ResidualCompressor(Compressor):
@@ -313,6 +321,10 @@ class ResidualCompressor(Compressor):
     def decompress_batch(self, sig: Sig) -> torch.Tensor:
         hsq, pvq = self.stages
         return hsq.decompress_batch(sig["stage0"]) + pvq.decompress_batch(sig["stage1"])
+
+    @property
+    def seed_draws(self) -> int:
+        return sum(s.seed_draws for s in self.stages)
 
     @property
     def wire_bits(self) -> int:

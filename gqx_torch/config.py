@@ -41,8 +41,8 @@ NETWORK_CHOICES = (
 _PORT_ONLY = {
     "use_pallas": (None, True),
     "scan_blocks": (False,),
-    "backend": ("sim",),
-    "wire": ("logical",),
+    "backend": ("sim", "mesh"),
+    "wire": ("logical", "packed"),
     "hsq_passes": (1, 2),
     "unit_dtype": ("auto", "float32", "bfloat16"),
     "compute_dtype": ("float32", "bfloat16"),

@@ -11,6 +11,12 @@ the step's (U, B, C, H, W) on the device by a copy and a permute.  The
 model's initial weights are drawn from ``config.seed``, the step's
 stochastic rounding from a generator seeded with ``config.seed + 17`` (as
 gqx seeds its step key).
+
+With ``backend="mesh"`` (an open process group: ``gqx_torch.cli`` opens
+it) every rank draws the same global batch and steps on its own users'
+rows (``parallel.distributed.local_user_batch``); only rank 0 prints, logs
+and profiles (gqx/runner.py:72-100); every rank evaluates and takes part in
+checkpoints, which rank 0 writes.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from gqx_torch.config import GQConfig, lr_at_epoch, resolve_schedule, wd_at_epoc
 from gqx_torch.data import Pipeline
 from gqx_torch.metrics import MetricLogger
 from gqx_torch.models import create_model
+from gqx_torch.parallel.distributed import local_user_batch, rank_and_world
 from gqx_torch.train import create_train_state, evaluate, make_eval_step, make_train_step
 
 
@@ -58,6 +65,12 @@ def run_training(
     (parameters, BN statistics, momentum, EF)."""
     config.validate()
     dev = resolve_device(device)
+    rank, world = rank_and_world()
+    if config.backend == "mesh" and not torch.distributed.is_initialized():
+        raise ValueError("backend='mesh' needs an open process group "
+                         "(gqx_torch.parallel.distributed.maybe_initialize)")
+    is_main = rank == 0
+    progress = progress and is_main
     epochs, base_lr, boundaries, lrs, _, initial_wd = resolve_schedule(config)
     if epochs_override is not None:
         epochs = epochs_override
@@ -85,7 +98,13 @@ def run_training(
 
     train_step = make_train_step(config, plan)
     eval_step = make_eval_step(state.model)
-    logger = MetricLogger(config.logdir)
+    logger = MetricLogger(config.logdir if is_main else None)
+
+    def local_batch(x, y):
+        """This rank's users of a global batch (all of them under sim)."""
+        if config.backend != "mesh":
+            return x, y
+        return local_user_batch(x, rank, world), local_user_batch(y, rank, world)
 
     # bytes-on-wire accounting (packed payload sizes), as gqx logs it
     total_params = sum(p.numel() for p in state.model.parameters())
@@ -110,7 +129,7 @@ def run_training(
     total_steps = 0
     # torch.profiler trace of steady-state steps from step 2 (step 1 builds
     # and loads the kernels)
-    profile_at = 2 if config.profile_dir else None
+    profile_at = 2 if config.profile_dir and is_main else None
     profiler = None
     # host seconds in the training loop (batches, transfers, steps), evals
     # and checkpoints excluded; the clock stops after a synchronise
@@ -129,7 +148,7 @@ def run_training(
             if profile_at is not None and total_steps + 1 == profile_at:
                 _synchronize(dev)
                 profiler = _start_profile(config.profile_dir, dev)
-            xt, yt = to_device(x, y, dev)
+            xt, yt = to_device(*local_batch(x, y), dev)
             loss = train_step(state, xt, yt, lr, wd, generator, scale)
             total_steps += 1
             if profiler is not None and total_steps >= profile_at + config.profile_steps - 1:
@@ -177,9 +196,14 @@ def run_training(
 def _start_profile(profile_dir: str, device: torch.device):
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
+    from gqx_torch.utils.profiling import pad_window
+
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
     prof.start()
+    if device.type == "cuda":
+        # the profiler drops a window's leading device events: spins open it
+        pad_window()
     return prof

@@ -42,6 +42,7 @@ from gqx_torch.convert import leaf_paths
 from gqx_torch.models.common import clear_batch_stats, update_running_stats
 from gqx_torch.models.folded import folded_users
 from gqx_torch.parallel.aggregate import AggState, init_state, make_aggregator
+from gqx_torch.parallel.collectives import init_mesh_state, make_mesh_train_step
 from gqx_torch.parallel.packing import UnitPlan, plan_units
 
 
@@ -57,7 +58,9 @@ def create_train_state(config, model: nn.Module, device="cuda") -> Tuple[TrainSt
     """Move ``model`` to ``device``, build the compression unit plan (in
     gqx's leaf order; a VQ codebook that no file holds is trained on
     ``device``), zero momentum and zero error-feedback state.  Returns
-    (state, plan).
+    (state, plan).  With ``backend="mesh"`` the error-feedback state is
+    this rank's (``collectives.init_mesh_state``): the process group must
+    be open.
 
     On a CUDA device with float32 compute, TF32 is switched off for cuDNN
     convolutions and cuBLAS matmuls (process-wide flags), so float32 means
@@ -75,7 +78,10 @@ def create_train_state(config, model: nn.Module, device="cuda") -> Tuple[TrainSt
     plan = plan_units([(n, tuple(p.shape)) for n, p in params.items()],
                       leaf_paths(model), config, device=dev)
     trace = {n: torch.zeros_like(p) for n, p in params.items()}
-    agg_state = init_state(plan, config.num_users, config.ef, config.two_phase, dev)
+    if config.backend == "mesh":
+        agg_state = init_mesh_state(config, plan, dev)
+    else:
+        agg_state = init_state(plan, config.num_users, config.ef, config.two_phase, dev)
     return TrainState(model, trace, agg_state), plan
 
 
@@ -162,12 +168,17 @@ def make_train_step(config, plan: UnitPlan) -> Callable:
     ``scale`` multiplies the error-feedback error before it is added to the
     gradient (``config.ef_scale(epoch)``); it is unused without EF.
 
-    With ``config.folded_users`` (and the ``sim`` backend, the only one
-    here) the per-user gradients come from ``folded_user_grads``, else from
-    the loop of ``user_grads`` (gqx/train.py:102-103)."""
+    With ``config.folded_users`` the per-user gradients come from
+    ``folded_user_grads``, else from the loop of ``user_grads``, on either
+    backend (gqx/train.py:102-103; gqx's mesh step folds too).
+    ``backend="mesh"`` is the distributed step
+    (``collectives.make_mesh_train_step``): x and y hold this rank's users.
+    """
+    if config.backend == "mesh":
+        return make_mesh_train_step(config, plan)
     aggregator = make_aggregator(config, plan)
     momentum = resolve_schedule(config)[4]
-    folded = bool(config.folded_users) and config.backend == "sim"
+    folded = bool(config.folded_users)
 
     def train_step(state: TrainState, x, y, lr: float, wd: float,
                    generator: Optional[torch.Generator], scale: float = 1.0):

@@ -61,7 +61,10 @@ def test_cli_flags_reach_config():
         "p", "bfloat16", True, True)
 
 
-@pytest.mark.parametrize("flags", [["--backend", "mesh"], ["--wire", "packed"],
+# --backend mesh and --wire packed train (the distributed backend); the
+# mesh backend lifts no other refusal
+@pytest.mark.parametrize("flags", [["--backend", "mesh", "--hsq-passes", "6"],
+                                   ["--wire", "packed", "--use-pallas", "0"],
                                    ["--use-pallas", "0"], ["--hsq-passes", "6"],
                                    ["--compute-dtype", "float16"]])
 def test_unimplemented_values_raise(flags):
@@ -69,6 +72,8 @@ def test_unimplemented_values_raise(flags):
         config_from_args(build_parser().parse_args(flags))
 
 
+# a coordinator without a process count and id, and two processes without
+# a coordinator, raise before any rendezvous
 @pytest.mark.parametrize("flags", [["--coordinator-address", "localhost:1234"],
                                    ["--num-processes", "2"], ["--platform", "tpu"]])
 def test_unimplemented_runtime_flags_raise(flags):
@@ -96,3 +101,29 @@ def test_verify_drive_on_the_cpu(tmp_path, capsys):
                     ("loss", 31), ("accuracy(%)", 31)]
     out = capsys.readouterr().out
     assert "Test Accuracy:" in out and "done: 32 steps" in out
+
+
+def test_mesh_packed_verify_drive_on_the_cpu(tmp_path, capsys):
+    """The verify drive on the distributed backend with the packed wire, one
+    process (a gloo group of one, opened and closed by the CLI): the sim
+    backend's accuracy and tags."""
+    import torch.distributed as dist
+
+    state, accuracy = main(VERIFY + ["--platform", "cpu", "--backend", "mesh", "--wire",
+                                     "packed", "--logdir", str(tmp_path)])
+    assert state.step == 32 and accuracy >= 0.99
+    assert not dist.is_initialized()
+    with open(os.path.join(tmp_path, "scalars.csv")) as f:
+        tags = [(r["tag"], int(r["step"])) for r in csv.DictReader(f)]
+    assert tags == [("wire_bytes_per_user_step", 0), ("compression_ratio_vs_fp32", 0),
+                    ("loss", 31), ("accuracy(%)", 31)]
+    assert "done: 32 steps" in capsys.readouterr().out
+
+
+def test_mesh_without_a_card_raises():
+    """No --platform means the card for the distributed backend too: NCCL,
+    no fallback to gloo on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(VERIFY + ["--backend", "mesh", "--wire", "packed"])

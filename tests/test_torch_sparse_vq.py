@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import gqx.compress.vq as gqx_vq
-import gqx_torch.compress.vq as vq
+import gqx_torch.compress.api as api
 from gqx.compress import make_compressor as gqx_make_compressor
 from gqx.config import GQConfig as GqxConfig
 from gqx.ops import pallas_hsq4
@@ -283,7 +283,9 @@ def test_residual_matches_gqx(rng, monkeypatch):
     sig_j = [gq.compress(jnp.asarray(v[i]), keys[i]) for i in range(users)]
     # gqx splits the key per stage, then PVQ's for its samples
     r = np.stack([_gqx_pvq_uniforms(jax.random.split(k, 2)[1], pvq.M) for k in keys])
-    monkeypatch.setattr(vq, "uniform", lambda seed, offset, shape, device: torch.from_numpy(r))
+    # every batch draw goes through compress.api's uniform (random=False: the
+    # HSQ stage's norms draw none, PVQ's samples the one)
+    monkeypatch.setattr(api, "uniform", lambda seed, offset, shape, device: torch.from_numpy(r))
     sig = pt.compress_batch(torch.from_numpy(v), torch.Generator().manual_seed(0))
 
     s0 = [s["stage0"] for s in sig_j]

@@ -248,8 +248,10 @@ def test_two_fcn_steps_with_ef_and_ring_match_gqx(rng, interpret_kernels, extra)
 
 
 def test_step_options_raise():
+    # "mesh" is the distributed backend (tests/test_torch_collectives.py)
+    assert GQConfig(backend="mesh", wire="packed").backend == "mesh"
     with pytest.raises(ValueError):
-        GQConfig(backend="mesh")
+        GQConfig(backend="tpu")
     with pytest.raises(ValueError):
         GQConfig(scan_blocks=True)
     with pytest.raises(ValueError):
@@ -287,6 +289,9 @@ def test_port_imports_no_jax_or_gqx():
     the sources are scanned."""
     files = sorted((REPO / "gqx_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    for new in ("parallel/collectives.py", "parallel/distributed.py",
+                "scripts/dist_worker.py", "utils/profiling.py"):
+        assert REPO / "gqx_torch" / new in files
     banned = ("jax", "jaxlib", "flax", "optax", "gqx")
     for f in files:
         for mod in _imports(f):
