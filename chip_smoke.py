@@ -1358,8 +1358,7 @@ def device_split_phase(name, state, step, batch, ms_step):
     from gqx_torch import bench
 
     x, y, gen = batch
-    total, split, by_op = bench.device_split(lambda: step(state, x, y, 0.1, 5e-4, gen),
-                                             state.model, 3)
+    total, split, by_op = bench.device_split(lambda: step(state, x, y, 0.1, 5e-4, gen), 3)
     attributed = sum(v for k, v in split.items() if k != bench.UNATTRIBUTED)
     if abs(attributed - total) > 0.01 * total:
         raise AssertionError(f"{name}: the families {split} sum to {attributed} ms, the device "

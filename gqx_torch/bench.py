@@ -67,7 +67,7 @@ HAND_WRITTEN = {
     "per_user_dw_narrow_f32_kernel": "K7 per_user_dw_narrow_f32",
     "per_user_dw_kernel": "K7 per_user_dw (CUDA cores)",
 }
-BN_FORWARD = "gqx_torch::bn_forward"   # profiler range put round each BN forward
+BN_FORWARD = "gqx_torch::bn.forward"   # the program's range round each BN forward
 CONV_OPS = {"aten::convolution", "aten::_convolution", "aten::convolution_backward",
             "aten::cudnn_convolution", "aten::cudnn_convolution_transpose"}
 GEMM_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::matmul", "aten::einsum",
@@ -126,29 +126,7 @@ def op_chain(event):
     return ops
 
 
-def mark_bn_forward(model):
-    """Hooks that put a profiler range named BN_FORWARD round the forward
-    of every BatchNorm of ``model``; returns their handles."""
-    from torch.autograd.profiler import record_function
-
-    from gqx_torch.models.common import BatchNorm
-
-    open_ranges = {}
-
-    def enter(mod, args):
-        open_ranges[id(mod)] = record_function(BN_FORWARD).__enter__()
-
-    def leave(mod, args, out):
-        open_ranges.pop(id(mod)).__exit__(None, None, None)
-
-    handles = []
-    for mod in model.modules():
-        if isinstance(mod, BatchNorm):
-            handles += [mod.register_forward_pre_hook(enter), mod.register_forward_hook(leave)]
-    return handles
-
-
-def device_split(step, model, n: int):
+def device_split(step, n: int):
     """Run ``step`` ``n`` times under torch.profiler (CPU and CUDA); returns
     (device ms per step, {family: device ms per step}, {(family, innermost
     op): device ms per step}).  Hand-written kernels are counted from the
@@ -161,32 +139,27 @@ def device_split(step, model, n: int):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gqx_torch.utils.profiling import PAD_CYCLES, is_pad, pad_window
+    from gqx_torch.utils.profiling import PAD_CYCLES, SPAN_NAMES, is_pad, pad_window
 
-    handles = mark_bn_forward(model)
-    try:
-        for cycles in PAD_CYCLES:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                pad_window(cycles)
-                for _ in range(n):
-                    step()
-                torch.cuda.synchronize()
-            events = prof.events()
-            # kernels, copies and sets; not the device-side spans of the
-            # BN_FORWARD ranges (user annotations), which overlap kernels
-            device = [e for e in events if e.device_type == DeviceType.CUDA
-                      and not getattr(e, "is_user_annotation", False) and e.name != BN_FORWARD]
-            pads = sum(1 for e in device if is_pad(e.name))
-            device = [e for e in device if not is_pad(e.name)]
-            total = sum(e.time_range.elapsed_us() for e in device)
-            if pads and total > 0:
-                break
-        else:
-            raise RuntimeError(f"the profiler lost the device events of {len(PAD_CYCLES)} "
-                               "windows")
-    finally:
-        for h in handles:
-            h.remove()
+    for cycles in PAD_CYCLES:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pad_window(cycles)
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        events = prof.events()
+        # kernels, copies and sets; not the device-side spans of the
+        # program's ranges (user annotations), which overlap kernels
+        device = [e for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False) and e.name not in SPAN_NAMES]
+        pads = sum(1 for e in device if is_pad(e.name))
+        device = [e for e in device if not is_pad(e.name)]
+        total = sum(e.time_range.elapsed_us() for e in device)
+        if pads and total > 0:
+            break
+    else:
+        raise RuntimeError(f"the profiler lost the device events of {len(PAD_CYCLES)} "
+                           "windows")
     split = collections.Counter()
     by_op = collections.Counter()
     for e in device:
@@ -198,7 +171,7 @@ def device_split(step, model, n: int):
             continue
         ops = op_chain(e)
         for k in e.kernels:
-            if k.name == BN_FORWARD or is_pad(k.name):
+            if k.name in SPAN_NAMES or is_pad(k.name):
                 continue
             family = classify(k.name, ops)
             if family in FAMILIES:
@@ -266,7 +239,7 @@ def measure(name: str, network: str, dtype: str, folded: bool, device: torch.dev
         "device_split_ms": None,
     }
     if device.type == "cuda":
-        dev_ms, split, by_op = device_split(step, model, PROFILED_STEPS)
+        dev_ms, split, by_op = device_split(step, PROFILED_STEPS)
         row.update(device_ms_per_step=dev_ms, device_share=dev_ms / row["ms_per_step"],
                    device_split_ms=split,
                    top_ops_ms={f"{f} | {op}": v for (f, op), v in

@@ -34,6 +34,7 @@ from gqx_torch.data.transforms import (
     normalize,
     resize_center_crop,
 )
+from gqx_torch.utils.profiling import span
 
 
 class Pipeline:
@@ -63,12 +64,15 @@ class Pipeline:
         order = rng.permutation(len(self.train_x))
         u, b = self.num_users, self.batch_size
         for step in range(self.steps_per_epoch):
-            idx = order[step * self.global_batch: (step + 1) * self.global_batch]
-            if self.augment == "native":
-                x = native_lib.augment_batch(self.train_x[idx], self.dataset, rng)
-            else:
-                x = augment_batch(self.train_x[idx], self.dataset, rng)
-            y = self.train_y[idx].astype(np.int32)
+            with span("gqx_torch::data.batch"):
+                idx = order[step * self.global_batch: (step + 1) * self.global_batch]
+                images = self.train_x[idx]
+                with span("gqx_torch::data.augment"):
+                    if self.augment == "native":
+                        x = native_lib.augment_batch(images, self.dataset, rng)
+                    else:
+                        x = augment_batch(images, self.dataset, rng)
+                y = self.train_y[idx].astype(np.int32)
             yield x.reshape((u, b) + x.shape[1:]), y.reshape(u, b)
 
     def test_batches(self, limit: Optional[int] = None) -> Iterator[Tuple[np.ndarray, np.ndarray]]:

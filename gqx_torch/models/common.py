@@ -37,6 +37,7 @@ from torch import nn
 
 from gqx_torch.models.folded import (GroupedBatchNorm, SharedConv, SharedDense,
                                      active_folded_users)
+from gqx_torch.utils.profiling import span
 
 
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -141,21 +142,22 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x):
-        if not self.training:
-            inv = torch.rsqrt(self.running_var + self.eps)
-            y = (x.to(torch.float32) - self.running_mean[:, None, None]) * inv[:, None, None]
-            y = y * self.weight[:, None, None] + self.bias[:, None, None]
-            return y.to(x.dtype)
-        folded = active_folded_users()
-        if folded is None:
-            users, ghost_w, ghost_b = 1, None, None
-        else:
-            users = folded.users
-            ghost_w, ghost_b = folded.ghost_for(self.weight), folded.ghost_for(self.bias)
-        y, mean, var = GroupedBatchNorm.apply(x, self.weight, self.bias, ghost_w, ghost_b,
-                                              users, self.eps)
-        self.batch_stats.append((mean, var))
-        return y
+        with span("gqx_torch::bn.forward"):
+            if not self.training:
+                inv = torch.rsqrt(self.running_var + self.eps)
+                y = (x.to(torch.float32) - self.running_mean[:, None, None]) * inv[:, None, None]
+                y = y * self.weight[:, None, None] + self.bias[:, None, None]
+                return y.to(x.dtype)
+            folded = active_folded_users()
+            if folded is None:
+                users, ghost_w, ghost_b = 1, None, None
+            else:
+                users = folded.users
+                ghost_w, ghost_b = folded.ghost_for(self.weight), folded.ghost_for(self.bias)
+            y, mean, var = GroupedBatchNorm.apply(x, self.weight, self.bias, ghost_w, ghost_b,
+                                                  users, self.eps)
+            self.batch_stats.append((mean, var))
+            return y
 
 
 @torch.no_grad()
@@ -164,14 +166,15 @@ def update_running_stats(model: nn.Module) -> None:
     entry per user from the per-user loop, or one (U, C) entry from the
     folded step) into each BatchNorm's running statistics: the mean over
     users, with momentum 0.9 — gqx's update (gqx/models/common.py:313-316)."""
-    for mod in model.modules():
-        if isinstance(mod, BatchNorm) and mod.batch_stats:
-            mean_u = torch.cat([m for m, _ in mod.batch_stats]).mean(0)
-            var_u = torch.cat([v for _, v in mod.batch_stats]).mean(0)
-            m = mod.momentum
-            mod.running_mean.copy_(m * mod.running_mean + (1 - m) * mean_u)
-            mod.running_var.copy_(m * mod.running_var + (1 - m) * var_u)
-            mod.batch_stats.clear()
+    with span("gqx_torch::update.bn_stats"):
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm) and mod.batch_stats:
+                mean_u = torch.cat([m for m, _ in mod.batch_stats]).mean(0)
+                var_u = torch.cat([v for _, v in mod.batch_stats]).mean(0)
+                m = mod.momentum
+                mod.running_mean.copy_(m * mod.running_mean + (1 - m) * mean_u)
+                mod.running_var.copy_(m * mod.running_var + (1 - m) * var_u)
+                mod.batch_stats.clear()
 
 
 def clear_batch_stats(model: nn.Module) -> None:

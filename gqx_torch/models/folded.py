@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from gqx_torch.ops.dw import per_user_dw
+from gqx_torch.utils.profiling import span
 
 
 class FoldedUsers:
@@ -102,7 +103,7 @@ class SharedConv(torch.autograd.Function):
         x, weight = ctx.saved_tensors
         users, stride, pads = ctx.users, ctx.stride, ctx.pads
         top, bottom, left, right = pads
-        co, ci, kh, kw = weight.shape
+        ci = weight.shape[1]
         dy = dy.contiguous()
         dx = None
         if ctx.needs_input_grad[0]:
@@ -111,22 +112,29 @@ class SharedConv(torch.autograd.Function):
             dx = dx[:, :, top:h - bottom, left:w - right]
         dku = None
         if ctx.needs_input_grad[2]:
-            if kh * kw > 1 and stride == 1 and dy.shape[2:] == x.shape[2:]:
-                dku = per_user_dw(x.contiguous(), dy, users, kh, kw, top, left)
-            elif kh * kw == 1:
-                xs = x[:, :, ::stride, ::stride]
-                dku = torch.einsum("ubis,ubos->uoi", xs.reshape(users, -1, ci, xs.shape[2] * xs.shape[3]),
-                                   dy.reshape(users, -1, co, dy.shape[2] * dy.shape[3]))
-                dku = dku.reshape(users, co, ci, 1, 1)
-            else:
-                xu = _pad(x, pads).reshape((users, -1) + (ci, x.shape[2] + top + bottom,
-                                                          x.shape[3] + left + right))
-                dyu = dy.reshape((users, -1) + tuple(dy.shape[1:]))
-                dku = torch.stack([
-                    torch.nn.grad.conv2d_weight(xu[u], weight.shape, dyu[u], stride=stride)
-                    for u in range(users)])
-            dku = _as_param_grad(dku, weight.dtype)
+            with span("gqx_torch::fwd_bwd.per_user_dw"):
+                dku = _conv_dku(x, dy, weight.shape, users, stride, pads)
+                dku = _as_param_grad(dku, weight.dtype)
         return dx, None, dku, None, None, None
+
+
+def _conv_dku(x, dy, wshape, users, stride, pads):
+    """The per-user weight gradient (U, Co, Ci, Kh, Kw) of a folded conv by
+    gqx's routing (the module docstring)."""
+    top, bottom, left, right = pads
+    co, ci, kh, kw = wshape
+    if kh * kw > 1 and stride == 1 and dy.shape[2:] == x.shape[2:]:
+        return per_user_dw(x.contiguous(), dy, users, kh, kw, top, left)
+    if kh * kw == 1:
+        xs = x[:, :, ::stride, ::stride]
+        dku = torch.einsum("ubis,ubos->uoi", xs.reshape(users, -1, ci, xs.shape[2] * xs.shape[3]),
+                           dy.reshape(users, -1, co, dy.shape[2] * dy.shape[3]))
+        return dku.reshape(users, co, ci, 1, 1)
+    xu = _pad(x, pads).reshape((users, -1) + (ci, x.shape[2] + top + bottom,
+                                              x.shape[3] + left + right))
+    dyu = dy.reshape((users, -1) + tuple(dy.shape[1:]))
+    return torch.stack([torch.nn.grad.conv2d_weight(xu[u], wshape, dyu[u], stride=stride)
+                        for u in range(users)])
 
 
 def _pad(x, pads):
@@ -150,9 +158,10 @@ class SharedDense(torch.autograd.Function):
         dx = dy @ weight if ctx.needs_input_grad[0] else None
         dku = None
         if ctx.needs_input_grad[2]:
-            dku = torch.einsum("ubo,ubi->uoi", dy.reshape(users, -1, dy.shape[-1]),
-                               x.reshape(users, -1, x.shape[-1]))
-            dku = _as_param_grad(dku, weight.dtype)
+            with span("gqx_torch::fwd_bwd.per_user_dw"):
+                dku = torch.einsum("ubo,ubi->uoi", dy.reshape(users, -1, dy.shape[-1]),
+                                   x.reshape(users, -1, x.shape[-1]))
+                dku = _as_param_grad(dku, weight.dtype)
         return dx, None, dku, None
 
 
@@ -187,20 +196,22 @@ class GroupedBatchNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
-        x, mean, var, inv, weight = ctx.saved_tensors
-        users = ctx.users
-        shape = x.shape
-        n = x.numel() // (users * shape[1])
-        xc = x.reshape((users, -1) + tuple(shape[1:])).to(mean.dtype) - mean[:, None, :, None, None]
-        dyf = dy.reshape((users, -1) + tuple(shape[1:])).to(mean.dtype)
-        s1 = dyf.sum(dim=(1, 3, 4))
-        s2 = (dyf * (xc * inv[:, None, :, None, None])).sum(dim=(1, 3, 4))
-        g1 = weight * inv
-        g2 = s1 * g1 / n
-        g5 = (var > 0).to(var.dtype) * -(s2 * g1 * inv) / n
-        dx = (g1[:, None, :, None, None] * dyf - g2[:, None, :, None, None]
-              + xc * g5[:, None, :, None, None])
-        dx = dx.to(x.dtype).reshape(shape)
-        if ctx.needs_input_grad[3]:
-            return dx, None, None, s2, s1, None, None
-        return dx, s2.sum(0), s1.sum(0), None, None, None, None
+        with span("gqx_torch::bn.backward"):
+            x, mean, var, inv, weight = ctx.saved_tensors
+            users = ctx.users
+            shape = x.shape
+            n = x.numel() // (users * shape[1])
+            xc = (x.reshape((users, -1) + tuple(shape[1:])).to(mean.dtype)
+                  - mean[:, None, :, None, None])
+            dyf = dy.reshape((users, -1) + tuple(shape[1:])).to(mean.dtype)
+            s1 = dyf.sum(dim=(1, 3, 4))
+            s2 = (dyf * (xc * inv[:, None, :, None, None])).sum(dim=(1, 3, 4))
+            g1 = weight * inv
+            g2 = s1 * g1 / n
+            g5 = (var > 0).to(var.dtype) * -(s2 * g1 * inv) / n
+            dx = (g1[:, None, :, None, None] * dyf - g2[:, None, :, None, None]
+                  + xc * g5[:, None, :, None, None])
+            dx = dx.to(x.dtype).reshape(shape)
+            if ctx.needs_input_grad[3]:
+                return dx, None, None, s2, s1, None, None
+            return dx, s2.sum(0), s1.sum(0), None, None, None, None

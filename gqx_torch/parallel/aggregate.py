@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from gqx_torch.parallel.packing import UnitPlan
+from gqx_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -66,31 +67,46 @@ def ps_aggregate(plan: UnitPlan, grads: Dict[str, torch.Tensor], state: AggState
 
     ``grads`` maps each leaf name to (num_users, *leaf_shape).  Returns
     {name: aggregated leaf}; ``state`` is updated in place."""
-    out = []
-    for ui, (unit, g) in enumerate(zip(plan.units, plan.pack(grads))):
-        comp = unit.compressor
-        if state.ef is not None:
-            e = state.ef[ui]
-            e.mul_(scale).add_(g)                         # g + scale * e
-            dec = comp.roundtrip_batch(e, generator)
-            # the plain mean of the users' decoded values: the fused
-            # decode-mean rounds its weights after summing and is not this
-            mean = comp.users_mean(dec)
-            e.sub_(dec)                                   # the new error
-        else:
-            mean = comp.decode_mean(comp.compress_batch(g, generator))
+    with span("gqx_torch::aggregate"):
+        with span("gqx_torch::aggregate.pack"):
+            units = plan.pack(grads)
+        out = []
+        for ui, (unit, g) in enumerate(zip(plan.units, units)):
+            comp = unit.compressor
+            e = state.ef[ui] if state.ef is not None else None
+            with span("gqx_torch::aggregate.encode"):
+                g_enc = e.mul_(scale).add_(g) if e is not None else g   # g + scale * e
+                sig = comp.compress_batch(g_enc, generator)
+            with span("gqx_torch::aggregate.decode"):
+                if e is None:
+                    mean = comp.decode_mean(sig)
+                else:
+                    dec = comp.decompress_batch(sig)
+                    # the plain mean of the users' decoded values: the fused
+                    # decode-mean rounds its weights after summing and is not this
+                    mean = comp.users_mean(dec)
+                    e.sub_(dec)                               # the new error
 
-        if two_phase:
-            # downlink recompression of the mean (reference ps_quantizer.py:52-61)
-            if state.server_ef is not None:
-                mean = mean + state.server_ef[ui]
-                dec2 = comp.roundtrip(mean, generator)
-                state.server_ef[ui] = mean - dec2
-                mean = dec2
-            else:
-                mean = comp.roundtrip(mean, generator)
-        out.append(mean)
-    return plan.unpack(out)
+            if two_phase:
+                # downlink recompression of the mean (reference ps_quantizer.py:52-61)
+                mean = two_phase_roundtrip(comp, mean, state.server_ef, ui, generator)
+            out.append(mean)
+        return plan.unpack(out)
+
+
+def two_phase_roundtrip(comp, mean: torch.Tensor, server_ef: Optional[List[torch.Tensor]],
+                        ui: int, generator) -> torch.Tensor:
+    """The downlink's round trip of unit ``ui``'s mean, with the server's
+    error feedback where ``server_ef`` holds it (updated in place)."""
+    with span("gqx_torch::aggregate.encode"):
+        if server_ef is not None:
+            mean = mean + server_ef[ui]
+        sig = comp.compress(mean, generator)
+    with span("gqx_torch::aggregate.decode"):
+        dec = comp.decompress(sig)
+        if server_ef is not None:
+            server_ef[ui] = mean - dec
+    return dec
 
 
 def ring_aggregate(plan: UnitPlan, grads: Dict[str, torch.Tensor], state: AggState,
@@ -106,20 +122,26 @@ def ring_aggregate(plan: UnitPlan, grads: Dict[str, torch.Tensor], state: AggSta
     bf16 gradient as it is and every later hop adds the float32 carry to the
     bf16 gradient in float32.  gqx's ``lax.scan`` refuses that plan (its
     carry would change type) and needs ``unit_dtype="float32"`` there."""
-    out = []
-    for ui, (unit, g) in enumerate(zip(plan.units, plan.pack(grads))):
-        comp = unit.compressor
-        carry = None
-        for i in range(g.shape[0]):
-            acc = g[i] if carry is None else g[i] + carry
-            e = None if state.ef is None else state.ef[ui][i]
-            if e is not None:
-                acc = acc + scale * e
-            carry = comp.roundtrip(acc, generator)
-            if e is not None:
-                torch.sub(acc, carry, out=e)              # the new error
-        out.append(carry)
-    return plan.unpack(out)
+    with span("gqx_torch::aggregate"):
+        with span("gqx_torch::aggregate.pack"):
+            units = plan.pack(grads)
+        out = []
+        for ui, (unit, g) in enumerate(zip(plan.units, units)):
+            comp = unit.compressor
+            carry = None
+            for i in range(g.shape[0]):
+                e = None if state.ef is None else state.ef[ui][i]
+                with span("gqx_torch::aggregate.encode"):
+                    acc = g[i] if carry is None else g[i] + carry
+                    if e is not None:
+                        acc = acc + scale * e
+                    sig = comp.compress(acc, generator)
+                with span("gqx_torch::aggregate.decode"):
+                    carry = comp.decompress(sig)
+                    if e is not None:
+                        torch.sub(acc, carry, out=e)      # the new error
+            out.append(carry)
+        return plan.unpack(out)
 
 
 def make_aggregator(config, plan: UnitPlan) -> Callable:

@@ -58,10 +58,11 @@ from gqx_torch.compress.api import UserRows, draw_seed
 from gqx_torch.config import resolve_schedule
 from gqx_torch.models.common import BatchNorm, clear_batch_stats, update_running_stats
 from gqx_torch.ops.wire import pack_signature, unpack_signature, wire_bytes
-from gqx_torch.parallel.aggregate import AggState
+from gqx_torch.parallel.aggregate import AggState, two_phase_roundtrip
 from gqx_torch.parallel.distributed import (check_backend, process_user_range,
                                             rank_and_world)
 from gqx_torch.parallel.packing import UnitPlan
+from gqx_torch.utils.profiling import span
 
 # torch 2.13 renamed all_gather_into_tensor (it now warns)
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -196,7 +197,8 @@ def gather_rows(rows: torch.Tensor, world: int) -> torch.Tensor:
     """(n, words) rows of every rank -> (world * n, words), rank-major: ONE
     ``all_gather``."""
     out = rows.new_empty((world * rows.shape[0],) + tuple(rows.shape[1:]))
-    _all_gather(out, rows.contiguous())
+    with span("gqx_torch::collective.exchange"):
+        _all_gather(out, rows.contiguous())
     return out
 
 
@@ -208,20 +210,24 @@ def _mean_over_ranks(local: torch.Tensor, world: int) -> torch.Tensor:
     """The mean over ranks of equal-weight local means: one ``all_reduce``
     sum, divided by W (at W = 1 the value itself)."""
     out = local.to(torch.float32).contiguous()
-    dist.all_reduce(out)
+    with span("gqx_torch::collective.exchange"):
+        dist.all_reduce(out)
     return out.div_(world)
 
 
 def _ps_unit_logical(comp, g, e, scale, users: UserRows, world: int):
     """Local round trips or the fused decode-mean, then the mean over ranks.
     ``e`` (local users, unit) is updated in place."""
-    if e is not None:
-        e.mul_(scale).add_(g)                     # g + scale * e
-        dec = comp.roundtrip_batch(e, users)
-        local = comp.users_mean(dec)
-        e.sub_(dec)                               # the new error
-    else:
-        local = comp.decode_mean(comp.compress_batch(g, users))
+    with span("gqx_torch::aggregate.encode"):
+        g_enc = e.mul_(scale).add_(g) if e is not None else g   # g + scale * e
+        sig = comp.compress_batch(g_enc, users)
+    with span("gqx_torch::aggregate.decode"):
+        if e is None:
+            local = comp.decode_mean(sig)
+        else:
+            dec = comp.decompress_batch(sig)
+            local = comp.users_mean(dec)
+            e.sub_(dec)                           # the new error
     return _mean_over_ranks(local, world)
 
 
@@ -230,26 +236,20 @@ def _ps_unit_packed(comp, g, e, scale, users: UserRows, world: int):
     unpacks all users and means their decodes.  With EF the mean is the
     sim step's ``users_mean`` of the per-user decodes, and each local user's
     new error is its encoded value less its decode."""
-    g_enc = e.mul_(scale).add_(g) if e is not None else g
-    sig = comp.compress_batch(g_enc, users)
-    rows, layout = pack_rows(comp, sig)
-    sig_all = unpack_rows(comp, gather_rows(rows, world), layout)
-    if e is None:
-        return comp.decode_mean(sig_all)
-    dec = comp.decompress_batch(sig_all)
-    e.sub_(dec[users.first:users.first + users.count])
-    return comp.users_mean(dec)
-
-
-def _two_phase_unit(comp, mean, server_ef, ui, generator):
-    """Replicated downlink recompression (reference ps_quantizer.py:52-61),
-    with the same draws on every rank."""
-    if server_ef is None:
-        return comp.roundtrip(mean, generator)
-    mean = mean + server_ef[ui]
-    dec = comp.roundtrip(mean, generator)
-    server_ef[ui] = mean - dec
-    return dec
+    with span("gqx_torch::aggregate.encode"):
+        g_enc = e.mul_(scale).add_(g) if e is not None else g
+        sig = comp.compress_batch(g_enc, users)
+    with span("gqx_torch::collective.pack"):
+        rows, layout = pack_rows(comp, sig)
+    rows = gather_rows(rows, world)
+    with span("gqx_torch::collective.unpack"):
+        sig_all = unpack_rows(comp, rows, layout)
+    with span("gqx_torch::aggregate.decode"):
+        if e is None:
+            return comp.decode_mean(sig_all)
+        dec = comp.decompress_batch(sig_all)
+        e.sub_(dec[users.first:users.first + users.count])
+        return comp.users_mean(dec)
 
 
 def _skip_draws(generator, n: int) -> None:
@@ -269,20 +269,26 @@ def _ring_unit(comp, g, e, scale, generator, first: int, num_users: int,
     carry = None
     if rank > 0:
         carry = torch.empty(comp.size, dtype=torch.float32, device=g.device)
-        dist.recv(carry, rank - 1)
+        with span("gqx_torch::collective.exchange"):
+            dist.recv(carry, rank - 1)
     for i in range(g.shape[0]):
-        acc = g[i] if carry is None else g[i] + carry
-        if e is not None:
-            acc = acc + scale * e[i]
-        carry = comp.roundtrip(acc, generator).to(torch.float32)
-        if e is not None:
-            torch.sub(acc, carry, out=e[i])       # the new error
+        with span("gqx_torch::aggregate.encode"):
+            acc = g[i] if carry is None else g[i] + carry
+            if e is not None:
+                acc = acc + scale * e[i]
+            sig = comp.compress(acc, generator)
+        with span("gqx_torch::aggregate.decode"):
+            carry = comp.decompress(sig).to(torch.float32)
+            if e is not None:
+                torch.sub(acc, carry, out=e[i])   # the new error
     if rank < world - 1:
-        dist.send(carry.contiguous(), rank + 1)
+        with span("gqx_torch::collective.exchange"):
+            dist.send(carry.contiguous(), rank + 1)
     _skip_draws(generator, (num_users - first - g.shape[0]) * comp.seed_draws)
     final = carry.contiguous() if rank == world - 1 else torch.empty(
         comp.size, dtype=torch.float32, device=g.device)
-    dist.broadcast(final, world - 1)
+    with span("gqx_torch::collective.exchange"):
+        dist.broadcast(final, world - 1)
     return final
 
 
@@ -319,11 +325,20 @@ def _ring_unit_segmented(cc, chunk: int, g, e, scale, seed: Optional[int],
     def encode(x, hop):
         gen = None if seed is None else torch.Generator().manual_seed(
             hop_seed(seed, rank * world + hop))
-        pre = x + scale * slots[hop] if slots is not None else x
-        sig = cc.compress_batch(pre[None], gen)
+        with span("gqx_torch::aggregate.encode"):
+            pre = x + scale * slots[hop] if slots is not None else x
+            sig = cc.compress_batch(pre[None], gen)
         if slots is not None:
-            torch.sub(pre, cc.decompress_batch(sig)[0], out=slots[hop])
-        return pack_rows(cc, sig)
+            with span("gqx_torch::aggregate.decode"):
+                torch.sub(pre, cc.decompress_batch(sig)[0], out=slots[hop])
+        with span("gqx_torch::collective.pack"):
+            return pack_rows(cc, sig)
+
+    def decode(rows, layout):
+        with span("gqx_torch::collective.unpack"):
+            sig = unpack_rows(cc, rows, layout)
+        with span("gqx_torch::aggregate.decode"):
+            return cc.decompress_batch(sig)
 
     acc = segs[rank]
     for s in range(world - 1):
@@ -331,14 +346,14 @@ def _ring_unit_segmented(cc, chunk: int, g, e, scale, seed: Optional[int],
         recv = torch.empty_like(rows)
         ops = [dist.P2POp(dist.isend, rows, (rank + 1) % world),
                dist.P2POp(dist.irecv, recv, (rank - 1) % world)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        partial = cc.decompress_batch(unpack_rows(cc, recv, layout))[0]
-        acc = partial + segs[(rank - s - 1) % world]
+        with span("gqx_torch::collective.exchange"):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        acc = decode(recv, layout)[0] + segs[(rank - s - 1) % world]
 
     # rank d now holds the quantized sum of segment (d + 1) % W
     rows, layout = encode(acc, world - 1)
-    decoded = cc.decompress_batch(unpack_rows(cc, gather_rows(rows, world), layout))
+    decoded = decode(gather_rows(rows, world), layout)
     order = (torch.arange(world) - 1) % world     # segment j came from rank j - 1
     return decoded[order.to(decoded.device)].reshape(-1)[:size]
 
@@ -424,26 +439,30 @@ def make_mesh_train_step(config, plan: UnitPlan) -> Callable:
         else:
             losses, grads = user_grads(model, plan.names, x, y)
         users = UserRows(generator, first, local)
-        out = []
-        for ui, (unit, g) in enumerate(zip(plan.units, plan.pack(grads))):
-            comp = unit.compressor
-            e = agg_state.ef[ui] if agg_state.ef is not None else None
-            if segmented:
-                seed = None if generator is None else draw_seed(generator)
-                if dev not in chunk_comps:
-                    chunk_comps[dev] = segment_compressors(config, plan, world, dev)
-                mean = _ring_unit_segmented(chunk_comps[dev][ui], chunks[ui], g, e, scale,
-                                            seed, rank, world)
-            elif ring:
-                mean = _ring_unit(comp, g, e, scale, generator, first, config.num_users,
-                                  rank, world)
-            elif packed:
-                mean = _ps_unit_packed(comp, g, e, scale, users, world)
-            else:
-                mean = _ps_unit_logical(comp, g, e, scale, users, world)
-            if not ring and config.two_phase:
-                mean = _two_phase_unit(comp, mean, agg_state.server_ef, ui, generator)
-            out.append(mean)
+        with span("gqx_torch::aggregate"):
+            with span("gqx_torch::aggregate.pack"):
+                units = plan.pack(grads)
+            out = []
+            for ui, (unit, g) in enumerate(zip(plan.units, units)):
+                comp = unit.compressor
+                e = agg_state.ef[ui] if agg_state.ef is not None else None
+                if segmented:
+                    seed = None if generator is None else draw_seed(generator)
+                    if dev not in chunk_comps:
+                        chunk_comps[dev] = segment_compressors(config, plan, world, dev)
+                    mean = _ring_unit_segmented(chunk_comps[dev][ui], chunks[ui], g, e, scale,
+                                                seed, rank, world)
+                elif ring:
+                    mean = _ring_unit(comp, g, e, scale, generator, first, config.num_users,
+                                      rank, world)
+                elif packed:
+                    mean = _ps_unit_packed(comp, g, e, scale, users, world)
+                else:
+                    mean = _ps_unit_logical(comp, g, e, scale, users, world)
+                if not ring and config.two_phase:
+                    # replicated, with the same draws on every rank
+                    mean = two_phase_roundtrip(comp, mean, agg_state.server_ef, ui, generator)
+                out.append(mean)
         fused_sgd_update(plan.unpack(out), dict(model.named_parameters()), state.trace,
                          lr, wd, momentum)
         loss = _pmean_tree(model, losses, world)

@@ -35,13 +35,15 @@ from gqx_torch.metrics import MetricLogger
 from gqx_torch.models import create_model
 from gqx_torch.parallel.distributed import local_user_batch, rank_and_world
 from gqx_torch.train import create_train_state, evaluate, make_eval_step, make_train_step
+from gqx_torch.utils.profiling import span
 
 
 def to_device(x: np.ndarray, y: np.ndarray, device: torch.device):
     """A Pipeline batch (..., H, W, C) float32 / int32 labels -> (..., C, H,
     W) float32 / int64 labels on ``device``."""
-    xt = torch.from_numpy(x).to(device).movedim(-1, -3).contiguous()
-    return xt, torch.from_numpy(y).to(device, torch.int64)
+    with span("gqx_torch::data.to_device"):
+        xt = torch.from_numpy(x).to(device).movedim(-1, -3).contiguous()
+        return xt, torch.from_numpy(y).to(device, torch.int64)
 
 
 def _synchronize(device: torch.device) -> None:

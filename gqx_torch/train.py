@@ -44,6 +44,7 @@ from gqx_torch.models.folded import folded_users
 from gqx_torch.parallel.aggregate import AggState, init_state, make_aggregator
 from gqx_torch.parallel.collectives import init_mesh_state, make_mesh_train_step
 from gqx_torch.parallel.packing import UnitPlan, plan_units
+from gqx_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -100,29 +101,31 @@ def fused_sgd_update(agg_grads: Dict[str, torch.Tensor],
     p = [params[n] for n in names]
     g = [agg_grads[n] for n in names]
     t = [trace[n] for n in names]
-    t2 = torch._foreach_mul(p, wd)
-    torch._foreach_add_(t2, g)
-    torch._foreach_add_(t2, torch._foreach_mul(t, momentum))
-    torch._foreach_copy_(t, t2)
-    torch._foreach_sub_(p, torch._foreach_mul(t2, lr))
+    with span("gqx_torch::update.sgd"):
+        t2 = torch._foreach_mul(p, wd)
+        torch._foreach_add_(t2, g)
+        torch._foreach_add_(t2, torch._foreach_mul(t, momentum))
+        torch._foreach_copy_(t, t2)
+        torch._foreach_sub_(p, torch._foreach_mul(t2, lr))
 
 
 def user_grads(model: nn.Module, names, x: torch.Tensor, y: torch.Tensor):
     """Per-user losses (U,) and gradients {name: (U, *shape)} from one
     forward/backward per user micro-batch; each BatchNorm records each
     user's batch statistics."""
-    params = dict(model.named_parameters())
-    leaves = [params[n] for n in names]
-    users = x.shape[0]
-    grads = {n: torch.empty((users,) + tuple(p.shape), dtype=torch.float32,
-                            device=p.device) for n, p in zip(names, leaves)}
-    losses = []
-    for i in range(users):
-        loss = cross_entropy(model(x[i]), y[i])
-        for n, g in zip(names, torch.autograd.grad(loss, leaves)):
-            grads[n][i] = g
-        losses.append(loss.detach())
-    return torch.stack(losses), grads
+    with span("gqx_torch::fwd_bwd"):
+        params = dict(model.named_parameters())
+        leaves = [params[n] for n in names]
+        users = x.shape[0]
+        grads = {n: torch.empty((users,) + tuple(p.shape), dtype=torch.float32,
+                                device=p.device) for n, p in zip(names, leaves)}
+        losses = []
+        for i in range(users):
+            loss = cross_entropy(model(x[i]), y[i])
+            for n, g in zip(names, torch.autograd.grad(loss, leaves)):
+                grads[n][i] = g
+            losses.append(loss.detach())
+        return torch.stack(losses), grads
 
 
 def folded_user_grads(model: nn.Module, plan: UnitPlan, names, x: torch.Tensor,
@@ -138,27 +141,29 @@ def folded_user_grads(model: nn.Module, plan: UnitPlan, names, x: torch.Tensor,
     value only in an identity unit (a linear round trip with no error): a
     compressed unit holding such a leaf raises.  Each BatchNorm records its
     (U, C) batch statistics."""
-    users, batch = x.shape[0], x.shape[1]
-    params = dict(model.named_parameters())
-    with folded_users(users) as folded:
-        logits = model(x.reshape((users * batch,) + tuple(x.shape[2:])))
-    losses = F.cross_entropy(logits, y.reshape(-1), reduction="none").reshape(users, batch).mean(1)
-    ghosts = folded.ghosts
-    uncovered = {n for n in names if params[n] not in ghosts}
-    for unit in plan.units:
-        if isinstance(unit.compressor, IdenticalCompressor):
-            continue
-        bad = {plan.names[i] for i in unit.leaf_indices} & uncovered
-        if bad:
-            raise ValueError(
-                f"folded_users: {sorted(bad)} are compressed but get no per-user gradient "
-                "from a folded layer; use folded_users=False for this model")
-    targets = [params[n] if n in uncovered else ghosts[params[n]] for n in names]
-    grads = {}
-    for n, g in zip(names, torch.autograd.grad(losses.sum(), targets)):
-        grads[n] = (g / users).to(torch.float32).expand((users,) + tuple(g.shape)) \
-            if n in uncovered else g
-    return losses.detach(), grads
+    with span("gqx_torch::fwd_bwd"):
+        users, batch = x.shape[0], x.shape[1]
+        params = dict(model.named_parameters())
+        with folded_users(users) as folded:
+            logits = model(x.reshape((users * batch,) + tuple(x.shape[2:])))
+        losses = F.cross_entropy(logits, y.reshape(-1),
+                                 reduction="none").reshape(users, batch).mean(1)
+        ghosts = folded.ghosts
+        uncovered = {n for n in names if params[n] not in ghosts}
+        for unit in plan.units:
+            if isinstance(unit.compressor, IdenticalCompressor):
+                continue
+            bad = {plan.names[i] for i in unit.leaf_indices} & uncovered
+            if bad:
+                raise ValueError(
+                    f"folded_users: {sorted(bad)} are compressed but get no per-user gradient "
+                    "from a folded layer; use folded_users=False for this model")
+        targets = [params[n] if n in uncovered else ghosts[params[n]] for n in names]
+        grads = {}
+        for n, g in zip(names, torch.autograd.grad(losses.sum(), targets)):
+            grads[n] = (g / users).to(torch.float32).expand((users,) + tuple(g.shape)) \
+                if n in uncovered else g
+        return losses.detach(), grads
 
 
 def make_train_step(config, plan: UnitPlan) -> Callable:
