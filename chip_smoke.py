@@ -31,6 +31,18 @@
    exists, the PyTorch call computing the same function (for the conv
    weight gradient, one grouped call for all users, with the per-user
    calls beside it).
+   [grouped_bn] The batch norm's kernels (K8: gqx_torch/ops/bn.py,
+   csrc/grouped_bn.cu) against their plain version, forward and backward,
+   at every batch-norm shape of the benchmark's three cells (ResNet-50 at
+   32 and 16 users, VGG-16 at 64, 32 images a user, bf16), of ResNet-50's
+   per-user loop (one user's call) and of ResNet-50 in float32 at 8 users
+   (its 32x32 backward on the two-pass route), each timed beside the plain
+   version and weighted by its count in a step; then one folded ResNet-50
+   forward and backward at 32 users x 32, whose launches by route must be
+   53 forward and 53 backward, all staged ("smem").  The entries
+   ``grouped_bn`` (staged, a u32 step) and ``grouped_bn_two_pass`` (the
+   float32 step's two-pass backwards) then count their launches on every
+   path below.
    [kmeans] Trains the (576, 256) codebook that P12's stem needs (no file
    holds it) at gqx's defaults (1M samples, 20 iterations, seed 808) on
    the card through ``get_codebook`` into an empty temporary cache, and
@@ -78,7 +90,11 @@
    gradient per folded step by route, from the network's convs and the
    compute dtype: ResNet-50 13 tensor-core and 1 narrow launches in bf16,
    13 float32 tensor-core and 1 narrow float32 in float32; VGG-16 12 + 1,
-   DenseNet-BC 58 + 1; the row-major encode by route).  The aggregate of
+   DenseNet-BC 58 + 1; the row-major encode by route; the batch norm, once
+   a batch norm each way per folded step and once a user per looped step,
+   by the route ``gqx_torch.ops.bn.plan`` gives each shape: ResNet-50 53 +
+   53 staged in bf16, 53 + 41 staged and 12 two-pass in float32).  The
+   aggregate of
    one more step of each of P1-P4 and P7-P11 (and P2's new
    error-feedback state) is recomputed on the CPU through the plain
    versions from the same gradients, state and seed, and compared; so is
@@ -1206,6 +1222,169 @@ def dw_kernel_phase(seed: int):
     return entries
 
 
+# the batch norms bn_kernel_phase checks and times, as (network, users,
+# images a user, compute dtype): the benchmark's three cells; the per-user
+# loop (P5: one call a user, so one group a channel); float32 compute (P7:
+# the 32x32 backward's groups do not fit shared memory, the two-pass route)
+BN_CELLS = {"resnet50.hsq.u32": ("resnet50", 32, 32, "bfloat16"),
+            "resnet50.pvq.u16": ("resnet50", 16, 32, "bfloat16"),
+            "vgg16.hsq.u64": ("vgg16", 64, 32, "bfloat16"),
+            "resnet50 loop": ("resnet50", 1, 32, "bfloat16"),
+            "resnet50 float32": ("resnet50", 8, 32, "float32")}
+
+
+@functools.lru_cache(maxsize=None)
+def bn_planes(network: str):
+    """{(C, H, W): count} of ``network``'s batch norms."""
+    from gqx_torch.models import create_model
+    from gqx_torch.models.common import batch_norm_planes
+
+    return batch_norm_planes(create_model(network, 10))
+
+
+# the kernel entry of each grouped_bn route
+BN_ENTRY = {"smem": "grouped_bn", "two_pass": "grouped_bn_two_pass"}
+
+
+@functools.lru_cache(maxsize=None)
+def bn_per_step(network: str, dtype: str, users: int = 8, batch: int = 32, folded: bool = True):
+    """{entry: launches} of the batch-norm kernels in one training step of
+    ``network`` at ``users`` x ``batch``, forward and backward, by the route
+    ``plan`` gives each shape: folded, one call of all users a batch norm
+    each way; looped, one call a user."""
+    import torch
+
+    from gqx_torch.ops import bn as bn_ops
+
+    table = dict.fromkeys(BN_ENTRY.values(), 0)
+    for (c, h, w), count in bn_planes(network).items():
+        for backward in (False, True):
+            p = bn_ops.plan(batch, c, h * w, getattr(torch, dtype), backward,
+                            bn_ops.block_smem(0))
+            table[BN_ENTRY[p.route]] += count * (1 if folded else users)
+    return table
+
+
+def bn_kernel_phase(seed: int):
+    """K8, the grouped batch norm (``gqx_torch.ops.bn``), at every shape of
+    ``BN_CELLS``: the kernels against the plain version, forward and
+    backward (the backward on the kernel's statistics), then both timed by
+    device time with the plain version beside them.  Tolerance: the float32
+    sums differ only in order, y and dx round once to x's type, so mean,
+    var, s1 and s2 agree within 1e-4 of the summed magnitudes and y and dx
+    within 2^-7 of the tensor's largest magnitude (an indexing fault moves
+    them by O(1)); the card tests hold them to the bit.  Bound: a read-once
+    kernel moves 2 elements forward (x in, y out) and 3 backward (x and dy
+    in, dx out), 4 and 6 B in bf16, at 3.35 TB/s.  Times per step of each
+    cell, each shape's weighted by its count (the loop: one user's calls).
+    Then one folded ResNet-50 forward and backward at 32 users x 32, the
+    launch counters set to 0 just before, must launch 53 forward and 53
+    backward, all staged.  Returns the entries of the two routes: the
+    staged one per step of the u32 cell, the two-pass one per float32 step
+    (its 32x32 backward)."""
+    import torch
+
+    from gqx_torch.config import GQConfig
+    from gqx_torch.models import create_model
+    from gqx_torch.ops import bn as bn_ops
+    from gqx_torch.train import create_train_state, folded_user_grads
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    keys = ("ms", "fwd_ms", "bwd_ms", "plain_ms", "plain_fwd_ms", "plain_bwd_ms", "bound_ms",
+            "bound_fwd_ms", "bound_bwd_ms")
+    steps = {cell: dict.fromkeys(keys, 0.0) for cell in BN_CELLS}
+    two_pass = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    shapes = []
+    for cell, (network, users, batch, dtype) in BN_CELLS.items():
+        for (c, h, w), count in bn_planes(network).items():
+            shape = (users * batch, c, h, w)
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(getattr(torch, dtype))
+            dy = torch.randn(shape, generator=gen, device=dev).to(x.dtype)
+            weight = torch.rand(c, generator=gen, device=dev) + 0.5
+            bias = torch.randn(c, generator=gen, device=dev)
+            fwd = lambda: bn_ops.grouped_bn_forward(x, weight, bias, users, 1e-5)
+            y, mean, var, inv = fwd()
+            bwd = lambda: bn_ops.grouped_bn_backward(x, dy, mean, var, inv, weight, users)
+            dx, s2, s1 = bwd()
+            yp, mp, vp, _ = bn_ops.forward_plain(x, weight, bias, users, 1e-5)
+            dxp, s2p, s1p = bn_ops.backward_plain(x, dy, mean, var, inv, weight, users)
+            xg = x.float().reshape(users, batch, c, h * w)
+            dyg = dy.float().reshape(users, batch, c, h * w)
+            xhat = (xg - mean[:, None, :, None]) * inv[:, None, :, None]
+            for what, got, want, tol in (
+                    ("mean", mean, mp, 1e-4 * xg.abs().mean(dim=(1, 3))),
+                    ("var", var, vp, 1e-4 * (xg * xg).mean(dim=(1, 3))),
+                    ("s1", s1, s1p, 1e-4 * dyg.abs().sum(dim=(1, 3))),
+                    ("s2", s2, s2p, 1e-4 * (dyg * xhat).abs().sum(dim=(1, 3))),
+                    ("y", y.float(), yp.float(), 2.0 ** -7 * yp.float().abs().max()),
+                    ("dx", dx.float(), dxp.float(), 2.0 ** -7 * dxp.float().abs().max())):
+                if not bool(((got - want).abs() <= tol).all()):
+                    raise AssertionError(f"grouped_bn {cell} {c}x{h}x{w}: {what} off the plain "
+                                         f"version by {float((got - want).abs().max())}")
+            del yp, dxp, xg, dyg, xhat
+            moved = x.numel() * x.element_size()
+            g = dict(cell=cell, shape=[c, h, w], count=count,
+                     route=[bn_ops.plan(batch, c, h * w, x.dtype, b,
+                                        bn_ops.block_smem(dev.index or 0)).route
+                            for b in (False, True)],
+                     fwd_ms=device_ms(fwd, 20), bwd_ms=device_ms(bwd, 20),
+                     plain_fwd_ms=device_ms(lambda: bn_ops.forward_plain(
+                         x, weight, bias, users, 1e-5), 3),
+                     plain_bwd_ms=device_ms(lambda: bn_ops.backward_plain(
+                         x, dy, mean, var, inv, weight, users), 3),
+                     bound_fwd_ms=2 * moved / HBM_BPS * 1e3, bound_bwd_ms=3 * moved / HBM_BPS * 1e3)
+            g["ms"], g["plain_ms"] = g["fwd_ms"] + g["bwd_ms"], g["plain_fwd_ms"] + g["plain_bwd_ms"]
+            g["bound_ms"] = g["bound_fwd_ms"] + g["bound_bwd_ms"]
+            log(f"[grouped_bn {cell} {c}x{h}x{w} x{count}] routes {g['route']}: forward "
+                f"{g['fwd_ms']:.4f} ms ({100 * g['bound_fwd_ms'] / g['fwd_ms']:.0f}% of its "
+                f"{g['bound_fwd_ms']:.4f}), backward {g['bwd_ms']:.4f} ms "
+                f"({100 * g['bound_bwd_ms'] / g['bwd_ms']:.0f}% of its {g['bound_bwd_ms']:.4f}); "
+                f"plain {g['plain_fwd_ms']:.3f} / {g['plain_bwd_ms']:.3f} ms")
+            for key in keys:
+                steps[cell][key] += count * g[key]
+            if cell == "resnet50 float32" and g["route"][1] == bn_ops.TWO_PASS:
+                for key, of in (("ms", "bwd_ms"), ("plain_ms", "plain_bwd_ms"),
+                                ("bound_ms", "bound_bwd_ms")):
+                    two_pass[key] += count * g[of]
+            shapes.append(g)
+            del x, dy, y, dx, fwd, bwd
+        t = steps[cell]
+        log(f"[grouped_bn per step] {cell}: forward {t['fwd_ms']:.3f} + backward "
+            f"{t['bwd_ms']:.3f} = {t['ms']:.3f} ms (bound {t['bound_ms']:.3f}: "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}%); plain {t['plain_fwd_ms']:.3f} + "
+            f"{t['plain_bwd_ms']:.3f} = {t['plain_ms']:.3f} ms")
+        torch.cuda.empty_cache()
+    log(f"[grouped_bn per step] resnet50 float32, the two-pass backwards: {two_pass['ms']:.3f} "
+        f"ms (bound {two_pass['bound_ms']:.3f}: {100 * two_pass['bound_ms'] / two_pass['ms']:.1f}"
+        f"%); plain {two_pass['plain_ms']:.3f} ms")
+    # the launches of one folded step of the u32 cell, by route
+    network, users, batch, dtype = BN_CELLS["resnet50.hsq.u32"]
+    cfg = GQConfig(network=network, quantizer="hsq", c_dim=16, k_bit=8, n_bit=6,
+                   num_users=users, batch_size=batch, compute_dtype=dtype)
+    model = create_model(network, 10, dtype, torch.Generator().manual_seed(seed))
+    _, plan = create_train_state(cfg, model, device="cuda")
+    xs = torch.randn((users, batch, 3, 32, 32), generator=gen, device=dev)
+    ys = torch.randint(0, 10, (users, batch), generator=gen, device=dev)
+    counters(reset=True)
+    folded_user_grads(model, plan, plan.names, xs, ys)
+    torch.cuda.synchronize()
+    per_step = dict(bn_ops.launches_by_route)
+    want = {k: 53 * (k in ("forward.smem", "backward.smem")) for k in per_step}
+    if per_step != want or counters()["grouped_bn"] != bn_per_step(network, dtype, users, batch)[
+            "grouped_bn"]:
+        raise AssertionError(f"grouped_bn: a folded u32 step launched {per_step}, expected {want}")
+    log(f"[grouped_bn] a folded ResNet-50 step at 32 users x 32: launches by route {per_step}")
+    del model, plan, xs, ys
+    torch.cuda.empty_cache()
+    common = dict(route="cuda", source="gqx_torch/csrc/grouped_bn.cu",
+                  replaces="none (gqx/models/folded.py:250-296, left to XLA)", bound_by="bytes",
+                  library_ms=None)
+    return {"grouped_bn": dict(name="grouped_bn", **common, u32_launches_by_route=per_step,
+                               steps=steps, shapes=shapes, **steps["resnet50.hsq.u32"]),
+            "grouped_bn_two_pass": dict(name="grouped_bn_two_pass", **common, **two_pass)}
+
+
 def log_entries(entries):
     for e in entries.values():
         log(f"[{e['name']}] {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms by {e['bound_by']}), "
@@ -1264,6 +1443,7 @@ def run_steps(cfg, seed: int, steps: int, count_fn=None):
 
 
 def counters(reset=False):
+    from gqx_torch.ops import bn as bn_ops
     from gqx_torch.ops import dw as dw_ops
     from gqx_torch.ops import hsq as hsq_ops
     from gqx_torch.ops import hsq_rows
@@ -1277,10 +1457,18 @@ def counters(reset=False):
         dw_ops.launches = 0
         for key in dw_ops.launches_by_route:
             dw_ops.launches_by_route[key] = 0
+        bn_ops.launches = 0
+        for key in bn_ops.launches_by_route:
+            bn_ops.launches_by_route[key] = 0
         return None
     by_route = dw_ops.launches_by_route
     if dw_ops.launches != sum(by_route.values()):
         raise AssertionError(f"per_user_dw: {dw_ops.launches} launches, by route {by_route}")
+    bn_route = bn_ops.launches_by_route
+    if bn_ops.launches != sum(bn_route.values()):
+        raise AssertionError(f"grouped_bn: {bn_ops.launches} launches, by route {bn_route}")
+    bn = {entry: sum(v for k, v in bn_route.items() if k.endswith("." + route))
+          for route, entry in BN_ENTRY.items()}
     rows_route = hsq_rows.launches_by_route
     if hsq_rows.launches["hsq_rows_encode"] != sum(rows_route.values()):
         raise AssertionError(f"hsq_rows_encode: {hsq_rows.launches['hsq_rows_encode']} launches, "
@@ -1292,22 +1480,27 @@ def counters(reset=False):
             "per_user_dw": by_route[dw_ops.CUDA_CORE], "per_user_dw_tc": by_route[dw_ops.TENSOR_CORE],
             "per_user_dw_narrow": by_route[dw_ops.NARROW],
             "per_user_dw_tc_f32": by_route[dw_ops.TENSOR_CORE_F32],
-            "per_user_dw_narrow_f32": by_route[dw_ops.NARROW_F32]}
+            "per_user_dw_narrow_f32": by_route[dw_ops.NARROW_F32], **bn}
 
 
 def check_launches(name, cfg, plan, steps, launches, per_unit, entries):
     """``steps`` steps' launches against what the code implies: per
     compressed unit and step as ``per_unit`` says ("U": once per user), the
     conv weight gradient per folded step by route, from the network's convs
-    and the compute dtype (``dw_per_step``), none of any other
-    kernel; each count joins its kernel's entry under ``name``."""
+    and the compute dtype (``dw_per_step``), the batch norm per step by
+    route, folded or looped (``bn_per_step``), none of any other kernel;
+    each count joins its kernel's entry under ``name``."""
     units = sum(1 for u in plan.units if type(u.compressor).__name__ != "IdenticalCompressor")
     dw_table = dw_per_step(cfg.network, cfg.compute_dtype)
+    bn_table = bn_per_step(cfg.network, cfg.compute_dtype, cfg.num_users, cfg.batch_size,
+                           cfg.folded_users)
     for kernel, count in launches.items():
         n = per_unit.get(kernel, 0)
         want = steps * units * (cfg.num_users if n == "U" else n)
         if kernel in dw_table:
             want = steps * dw_table[kernel] if cfg.folded_users else 0
+        if kernel in bn_table:
+            want = steps * bn_table[kernel]
         if count != want:
             raise AssertionError(f"{name}: {kernel} launched {count} times in "
                                  f"{steps} steps, expected {want}")
@@ -2094,7 +2287,8 @@ def cli_phase(entries, seed: int):
     logdir = tempfile.mkdtemp(prefix="gqx_torch_cli_")
     loop_ms = []
     try:
-        per_step = {**dw_per_step("resnet50", "float32"), **HSQ_PER_STEP}
+        per_step = {**dw_per_step("resnet50", "float32"), **bn_per_step("resnet50", "float32"),
+                    **HSQ_PER_STEP}
         for epochs, resume in ((1, False), (2, True)):
             argv = CLI_FLAGS + ["--epochs", str(epochs), "--logdir", logdir]
             state, accuracy, text = cli_run(argv + (["--resume"] if resume else []), "cli",
@@ -2119,7 +2313,8 @@ def cli_phase(entries, seed: int):
 
         state, _, _ = cli_run(VGG_FLAGS + ["--logdir", os.path.join(logdir, "vgg16")],
                               "cli vgg16", CLI_STEPS_PER_EPOCH,
-                              {**dw_per_step("vgg16", "float32"), **HSQ_PER_STEP}, entries)
+                              {**dw_per_step("vgg16", "float32"), **bn_per_step("vgg16", "float32"),
+                               **HSQ_PER_STEP}, entries)
         if state.step != CLI_STEPS_PER_EPOCH:
             raise AssertionError(f"cli vgg16: the run ended at step {state.step}")
 
@@ -2156,7 +2351,7 @@ def bench_phase(entries, runner_ms):
                         "bench")
     launches = counters()
     for kernel in ("hsq_encode", "philox_uniform", "hsq_decode_mean", "per_user_dw_tc",
-                   "per_user_dw_narrow"):
+                   "per_user_dw_narrow", "grouped_bn"):
         if launches[kernel] < 1:
             raise AssertionError(f"bench: {kernel} was not launched")
     for kernel, count in launches.items():
@@ -2375,7 +2570,8 @@ def cli_c256_phase(entries, cache_dir: str, card: str):
     use_codebook_cache(cache_dir)
     logdir = tempfile.mkdtemp(prefix="gqx_torch_c256_")
     try:
-        per_step = {**dw_per_step("resnet50", "float32"), **C256_PER_STEP}
+        per_step = {**dw_per_step("resnet50", "float32"), **bn_per_step("resnet50", "float32"),
+                    **C256_PER_STEP}
         state, _, text = cli_run(C256_FLAGS + ["--logdir", logdir], "cli c256",
                                  CLI_STEPS_PER_EPOCH, per_step, entries)
         if state.step != CLI_STEPS_PER_EPOCH:
@@ -2681,7 +2877,8 @@ def cli_mesh_phase(entries):
         argv = CLI_FLAGS + ["--epochs", "1", "--logdir", logdir, "--backend", "mesh",
                             "--wire", "packed", "--coordinator-address", f"127.0.0.1:{port}",
                             "--num-processes", "1", "--process-id", "0"]
-        per_step = {**dw_per_step("resnet50", "float32"), **HSQ_PER_STEP}
+        per_step = {**dw_per_step("resnet50", "float32"), **bn_per_step("resnet50", "float32"),
+                    **HSQ_PER_STEP}
         state, _, _ = cli_run(argv, "cli mesh", CLI_STEPS_PER_EPOCH, per_step, entries)
         if state.step != CLI_STEPS_PER_EPOCH:
             raise AssertionError(f"cli mesh: the run ended at step {state.step}")
@@ -2716,6 +2913,8 @@ def main():
     torch.cuda.empty_cache()
     entries.update(dw_kernel_phase(args.seed))
     torch.cuda.empty_cache()
+    entries.update(bn_kernel_phase(args.seed))
+    torch.cuda.empty_cache()
     log_entries(entries)
     for e in entries.values():
         e["launches"], e["launches_by_path"] = 0, {}
@@ -2730,7 +2929,8 @@ def main():
 
     order = ("hsq_encode", "hsq_decode_mean", "philox_uniform", "hsq_decode",
              "hsq_rows_encode_tc", "hsq_rows_encode_wide", "hsq_rows_decode", "per_user_dw",
-             "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32", "per_user_dw_narrow_f32")
+             "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32", "per_user_dw_narrow_f32",
+             "grouped_bn", "grouped_bn_two_pass")
     lost = collections.Counter(PAD_CALLS - p for p in PADS_SEEN)
     log(f"[profile] {len(PADS_SEEN)} profiled windows; leading spin kernels lost per window "
         f"(lost: windows): {dict(sorted(lost.items()))}")

@@ -28,8 +28,9 @@ from which ``gqx_torch.convert`` derives each parameter's gqx leaf path.
 
 from __future__ import annotations
 
+import collections
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -181,6 +182,26 @@ def clear_batch_stats(model: nn.Module) -> None:
     for mod in model.modules():
         if isinstance(mod, BatchNorm):
             mod.batch_stats.clear()
+
+
+def batch_norm_planes(model: nn.Module) -> Dict[Tuple[int, int, int], int]:
+    """{(C, H, W): count} of the inputs of ``model``'s batch norms at the
+    model's own image shape, read off one forward of one zero image in eval
+    mode; ``model`` must be on the CPU, and keeps its mode."""
+    found = collections.Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inputs: found.update([tuple(inputs[0].shape[1:])]))
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    training = model.training
+    h, w, c = model.image_shape
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, c, h, w))
+    finally:
+        model.train(training)
+        for hook in hooks:
+            hook.remove()
+    return dict(found)
 
 
 def reset_parameters(model: nn.Module, generator: Optional[torch.Generator]) -> None:

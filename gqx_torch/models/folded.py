@@ -14,7 +14,8 @@ batch, and only the weight gradients are kept apart per user:
   - ``SharedDense``: ``dx = dy @ W`` and the per-user ``dy^T x``.
   - ``GroupedBatchNorm``: per-user batch statistics (U, C) on the folded
     batch, gqx's analytic backward per group, per-user scale and bias
-    gradients (U, C).
+    gradients (U, C); both directions in ``gqx_torch.ops.bn`` (one kernel
+    launch each on the card).
 
 How a per-user gradient reaches the caller: each function takes, beside the
 shared parameter, a "ghost" of shape (U, *parameter.shape) and returns the
@@ -38,6 +39,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from gqx_torch.ops.bn import grouped_bn_backward, grouped_bn_forward
 from gqx_torch.ops.dw import per_user_dw
 from gqx_torch.utils.profiling import span
 
@@ -177,41 +179,26 @@ class GroupedBatchNorm(torch.autograd.Function):
     fast-variance forward would instead subtract two large terms and lose
     float32 digits wherever |mean| >> std.  ``ghost_weight``/``ghost_bias``
     (U, C) receive s2 and s1, the per-user gradients; without them (None)
-    ``weight`` and ``bias`` receive their sums over the groups."""
+    ``weight`` and ``bias`` receive their sums over the groups.  Both
+    directions are ``gqx_torch.ops.bn``'s: its plain version on the CPU, its
+    kernels on the card."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, ghost_weight, ghost_bias, users, eps):
-        shape = x.shape
-        xg = x.reshape((users, -1) + tuple(shape[1:]))
-        xf = xg.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(1, 3, 4))
-        var = torch.clamp_min((xf * xf).mean(dim=(1, 3, 4)) - mean * mean, 0.0)
-        inv = torch.rsqrt(var + eps)
-        y = (xf - mean[:, None, :, None, None]) * inv[:, None, :, None, None]
-        y = y * weight[:, None, None] + bias[:, None, None]
+        y, mean, var, inv = grouped_bn_forward(x, weight, bias, users, eps)
         ctx.users = users
         ctx.save_for_backward(x, mean, var, inv, weight)
         ctx.mark_non_differentiable(mean, var)
-        return y.to(x.dtype).reshape(shape), mean, var
+        # no zero gradients made for mean and var (two fills a batch norm);
+        # y is the one differentiable output, so dy is never None
+        ctx.set_materialize_grads(False)
+        return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         with span("gqx_torch::bn.backward"):
             x, mean, var, inv, weight = ctx.saved_tensors
-            users = ctx.users
-            shape = x.shape
-            n = x.numel() // (users * shape[1])
-            xc = (x.reshape((users, -1) + tuple(shape[1:])).to(mean.dtype)
-                  - mean[:, None, :, None, None])
-            dyf = dy.reshape((users, -1) + tuple(shape[1:])).to(mean.dtype)
-            s1 = dyf.sum(dim=(1, 3, 4))
-            s2 = (dyf * (xc * inv[:, None, :, None, None])).sum(dim=(1, 3, 4))
-            g1 = weight * inv
-            g2 = s1 * g1 / n
-            g5 = (var > 0).to(var.dtype) * -(s2 * g1 * inv) / n
-            dx = (g1[:, None, :, None, None] * dyf - g2[:, None, :, None, None]
-                  + xc * g5[:, None, :, None, None])
-            dx = dx.to(x.dtype).reshape(shape)
+            dx, s2, s1 = grouped_bn_backward(x, dy, mean, var, inv, weight, ctx.users)
             if ctx.needs_input_grad[3]:
                 return dx, None, None, s2, s1, None, None
             return dx, s2.sum(0), s1.sum(0), None, None, None, None

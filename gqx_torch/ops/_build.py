@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("hsq_encode", "hsq_decode_mean", "philox_uniform",
            "hsq_decode", "hsq_rows_encode", "hsq_rows_encode_tc", "hsq_rows_encode_wide",
            "hsq_rows_decode", "per_user_dw",
-           "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32", "per_user_dw_narrow_f32")
+           "per_user_dw_tc", "per_user_dw_narrow", "per_user_dw_tc_f32", "per_user_dw_narrow_f32",
+           "grouped_bn")
 
 #: gqx's flags for its native library (native/Makefile), so that the host
 #: library computes gqx's bits

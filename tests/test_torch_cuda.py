@@ -7,11 +7,15 @@ installed; there, skip the repository's conftest (which sets up jax):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from gqx_torch.compress.sparse import TopKCompressor
+from gqx_torch.ops import bn as bn_ops
 from gqx_torch.ops import dw as dw_ops
 from gqx_torch.ops import hsq as hsq_ops
 from gqx_torch.ops import hsq_rows
@@ -793,3 +797,289 @@ def test_cuda_kmeans_matches_cpu(cuda_device):
     assert len(differing) == len(errs) == 5
     cb = kmeans.train_codebook(24, 64, train_size=20_000, iters=5, device=cuda_device)
     assert cb.shape == (64, 24) and cb.dtype == np.float32 and np.isfinite(cb).all()
+
+
+# -- the grouped batch norm ---------------------------------------------------
+
+BN_EPS = 1e-5
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_planes(network):
+    """(C, H, W) of ``network``'s batch norms, sorted."""
+    from gqx_torch.models import create_model
+    from gqx_torch.models.common import batch_norm_planes
+
+    return sorted(batch_norm_planes(create_model(network, 10)))
+
+
+# (users, images a user, C, H, W, dtype): every batch norm of the three cells
+# (ResNet-50 at 32 and 16 users, VGG-16 at 64) and of DenseNet-BC (its
+# concatenated channel counts), of ResNet-50's per-user loop (one user), of
+# ResNet-50 and VGG-16 in float32 (whose 32x32 backward takes the two-pass
+# route), and odd planes (H*W of 63, 6 and 1: accesses of 1 and 2 elements),
+# a batch too large for shared memory, a ragged tile
+BN_SHAPES = ([(32, 32) + s + (BF16,) for s in _bn_planes("resnet50")]
+             + [(16, 32) + s + (BF16,) for s in _bn_planes("resnet50")]
+             + [(64, 32) + s + (BF16,) for s in _bn_planes("vgg16")]
+             + [(8, 32) + s + (BF16,) for s in _bn_planes("dense")]
+             + [(1, 32) + s + (BF16,) for s in _bn_planes("resnet50")]
+             + [(8, 32) + s + (F32,)
+                for s in sorted(set(_bn_planes("resnet50")) | set(_bn_planes("vgg16")))]
+             + [(3, 5, 7, 7, 9, BF16), (2, 3, 10, 3, 2, BF16), (2, 3, 5, 1, 1, F32),
+                (2, 128, 8, 32, 32, BF16), (3, 4, 100, 4, 4, F32)])
+
+
+def _bn_case(users, batch, c, h, w, dtype, seed, loc=0.5, scale=2.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (users * batch, c, h, w)
+    x = (torch.randn(shape, generator=g, device="cuda") * scale + loc).to(dtype)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    weight = torch.rand(c, generator=g, device="cuda") + 0.5
+    bias = torch.randn(c, generator=g, device="cuda")
+    return x, dy, weight, bias
+
+
+def _grouped(t, users):
+    return t.float().reshape((users, -1) + tuple(t.shape[1:]))
+
+
+def _bc(v):
+    return v[:, None, :, None, None]
+
+
+def _bn_forward_from(x, weight, bias, mean, inv, users):
+    """y from the given statistics, op for op as the plain version (and the
+    kernel) rounds it."""
+    y = (_grouped(x, users) - _bc(mean)) * _bc(inv)
+    return (y * weight[:, None, None] + bias[:, None, None]).to(x.dtype).reshape(x.shape)
+
+
+def _bn_backward_from(x, dy, mean, var, inv, weight, s1, s2, users):
+    """dx from the given sums, op for op as the kernel rounds it (the plain
+    version's ``/ n`` may be a product by 1/n on the card: here a division,
+    which is the same where n is a power of two)."""
+    n = torch.tensor(float(x.numel() // (users * x.shape[1])), device=x.device)
+    xc = _grouped(x, users) - _bc(mean)
+    g1 = weight * inv
+    g2 = s1 * g1 / n
+    g5 = (var > 0).to(var.dtype) * -(s2 * g1 * inv) / n
+    dx = _bc(g1) * _grouped(dy, users) - _bc(g2) + xc * _bc(g5)
+    return dx.to(x.dtype).reshape(x.shape)
+
+
+def _check_bn(x, dy, weight, bias, users, var_override=None):
+    """The kernels against the plain version on the same inputs.
+
+    Tolerances: the float32 sums (mean, E[x^2], s1, s2) add the same terms
+    in other orders, each thread a run of at most 256, then a tree: within
+    2e-5 of the summed magnitudes; var = E[x^2] - mean^2 within 6e-5 of
+    E[x^2].  Given the kernel's own statistics, y and dx round exactly where
+    the plain version rounds them (once to x's type at the end): the same
+    bits.  inv is rsqrt(var + eps) within 2 float32 ulp.  The backward takes
+    the kernel's forward statistics, with ``var_override`` put in where
+    given (a clipped group whose x is not constant: its g5 term is off)."""
+    y, mean, var, inv = bn_ops.grouped_bn_forward(x, weight, bias, users, BN_EPS)
+    _, mean_p, var_p, _ = bn_ops.forward_plain(x, weight, bias, users, BN_EPS)
+    xg = _grouped(x, users)
+    assert bool(((mean - mean_p).abs() <= 2e-5 * xg.abs().mean(dim=(1, 3, 4))).all())
+    assert bool(((var - var_p).abs() <= 6e-5 * (xg * xg).mean(dim=(1, 3, 4))).all())
+    torch.testing.assert_close(inv, torch.rsqrt(var + BN_EPS), rtol=2.5e-7, atol=0)
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert torch.equal(y, _bn_forward_from(x, weight, bias, mean, inv, users))
+    if var_override is not None:
+        var = var_override(var)
+    dx, s2, s1 = bn_ops.grouped_bn_backward(x, dy, mean, var, inv, weight, users)
+    _, s2_p, s1_p = bn_ops.backward_plain(x, dy, mean, var, inv, weight, users)
+    dyg = _grouped(dy, users)
+    assert bool(((s1 - s1_p).abs() <= 2e-5 * dyg.abs().sum(dim=(1, 3, 4))).all())
+    xhat = (xg - _bc(mean)) * _bc(inv)
+    assert bool(((s2 - s2_p).abs() <= 2e-5 * (dyg * xhat).abs().sum(dim=(1, 3, 4))).all())
+    assert dx.dtype == x.dtype and dx.shape == x.shape
+    assert torch.equal(dx, _bn_backward_from(x, dy, mean, var, inv, weight, s1, s2, users))
+    return (y, mean, var, inv), (dx, s2, s1)
+
+
+def _bn_route(x, users, backward):
+    p = bn_ops.plan(x.shape[0] // users, x.shape[1], x.shape[2] * x.shape[3], x.dtype,
+                    backward, bn_ops.block_smem(x.device.index))
+    return f"{'backward' if backward else 'forward'}.{p.route}"
+
+
+@pytest.mark.parametrize("users,batch,c,h,w,dtype", BN_SHAPES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_cuda_grouped_bn_matches_plain(cuda_device, users, batch, c, h, w, dtype):
+    """Forward and backward against the plain version, at every batch-norm
+    shape of the three cells and beside them; one launch each way, on the
+    route the plan names (the cells' shapes: read once, from shared
+    memory)."""
+    x, dy, weight, bias = _bn_case(users, batch, c, h, w, dtype, seed=c * h + users)
+    before = dict(bn_ops.launches_by_route)
+    _check_bn(x, dy, weight, bias, users)
+    fwd, bwd = _bn_route(x, users, False), _bn_route(x, users, True)
+    assert bn_ops.launches_by_route == {k: v + (k == fwd) + (k == bwd)
+                                        for k, v in before.items()}
+    if (users, batch, dtype) in ((32, 32, BF16), (16, 32, BF16), (64, 32, BF16)):
+        assert (fwd, bwd) == ("forward.smem", "backward.smem")
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_cuda_grouped_bn_large_mean_and_clipped_groups(cuda_device, dtype):
+    """A group whose |mean| is 64x its std (x centred element by element in
+    s2: sum(dy * x) - mean * sum(dy) would miss s2's tolerance there), a
+    constant group (var exactly 0, mean exact), and a group with x not
+    constant whose var is given as 0 to the backward (its g5 term off)."""
+    users, batch, c, h, w = 4, 32, 8, 16, 16
+    x, dy, weight, bias = _bn_case(users, batch, c, h, w, dtype, seed=5)
+    xg = x.view(users, batch, c, h, w)
+    xg[0, :, 0] = 1.5
+    xg[1, :, 1] = (512 + 8 * torch.randn((batch, h, w), device="cuda")).to(dtype)
+
+    def clip(var):
+        var = var.clone()
+        var[2, 3] = 0.0
+        return var
+
+    (_, mean, var, _), (dx, s2, s1) = _check_bn(x, dy, weight, bias, users, clip)
+    assert float(var[0, 0]) == 0.0 and float(mean[0, 0]) == 1.5 and float(var[1, 1]) > 0.0
+
+
+def test_cuda_grouped_bn_repeats_bits(cuda_device):
+    """Two runs on the same inputs give the same bits, on both routes."""
+    for users, batch, c, h, w, dtype in [(32, 32, 64, 32, 32, BF16), (8, 32, 2048, 4, 4, BF16),
+                                         (2, 32, 16, 32, 32, F32)]:
+        x, dy, weight, bias = _bn_case(users, batch, c, h, w, dtype, seed=11)
+        first = bn_ops.grouped_bn_forward(x, weight, bias, users, BN_EPS)
+        again = bn_ops.grouped_bn_forward(x, weight, bias, users, BN_EPS)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        _, mean, var, inv = first
+        first = bn_ops.grouped_bn_backward(x, dy, mean, var, inv, weight, users)
+        again = bn_ops.grouped_bn_backward(x, dy, mean, var, inv, weight, users)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("users,c,h,w,dtype", [
+    (32, 64, 32, 32, BF16), (16, 512, 4, 4, BF16), (8, 128, 16, 16, F32),
+    (8, 2048, 4, 4, BF16), (4, 64, 32, 32, F32)], ids=lambda v: str(v).replace("torch.", ""))
+def test_cuda_grouped_bn_folded_and_per_user_calls_agree_to_the_bit(cuda_device, users, c, h,
+                                                                      w, dtype):
+    """One call on all users' groups and one call a user (the per-user loop)
+    give each group the same bits, forward and backward: the plan, which
+    fixes the order of a group's sums, does not depend on the users (here
+    with a tile of 32 channels at 4x4 even where one user's call fills 16 of
+    the card's 132 multiprocessors, and on the two-pass route at float32
+    32x32)."""
+    x, dy, weight, bias = _bn_case(users, 32, c, h, w, dtype, seed=c + users)
+    y, mean, var, inv = bn_ops.grouped_bn_forward(x, weight, bias, users, BN_EPS)
+    dx, s2, s1 = bn_ops.grouped_bn_backward(x, dy, mean, var, inv, weight, users)
+    for u in range(users):
+        rows = slice(32 * u, 32 * (u + 1))
+        one = bn_ops.grouped_bn_forward(x[rows], weight, bias, 1, BN_EPS)
+        assert all(torch.equal(a, b) for a, b in zip(one, (y[rows], mean[u:u + 1],
+                                                           var[u:u + 1], inv[u:u + 1])))
+        one = bn_ops.grouped_bn_backward(x[rows], dy[rows], *one[1:], weight, 1)
+        assert all(torch.equal(a, b) for a, b in zip(one, (dx[rows], s2[u:u + 1], s1[u:u + 1])))
+
+
+def test_cuda_grouped_bn_narrows_to_the_alignment(cuda_device):
+    """x one element into a larger buffer, so 2-byte aligned only: the
+    accesses narrow from 8 elements to one, the results stay the plain
+    version's."""
+    x = torch.randn(8 * 3 * 5 * 8 + 1, device="cuda").to(BF16)[1:].view(8, 3, 5, 8)
+    assert x.is_contiguous() and x.data_ptr() % 4
+    dy = torch.randn(8, 3, 5, 8, device="cuda").to(BF16)
+    _check_bn(x, dy, torch.rand(3, device="cuda") + 0.5, torch.randn(3, device="cuda"), 4)
+
+
+def test_cuda_grouped_bn_refuses_bad_input(cuda_device):
+    x, dy, weight, bias = _bn_case(2, 4, 6, 8, 8, F32, seed=1)
+    _, mean, var, inv = bn_ops.grouped_bn_forward(x, weight, bias, 2, BN_EPS)
+    fwd = functools.partial(bn_ops.grouped_bn_forward, eps=BN_EPS)
+    for bad in (x.double(), x.half(), x.permute(0, 1, 3, 2), x[:, :, :, :4]):
+        with pytest.raises(ValueError):                     # type, layout
+            fwd(bad, weight, bias, 2)
+    with pytest.raises(ValueError):
+        fwd(x[0], weight, bias, 1)                          # not NCHW
+    with pytest.raises(ValueError):
+        fwd(x, weight, bias, 3)                             # 8 images, 3 users
+    for w, b in ((weight[:5], bias), (weight, bias.double()), (weight.cpu(), bias)):
+        with pytest.raises(ValueError):
+            fwd(x, w, b, 2)
+    bwd = bn_ops.grouped_bn_backward
+    with pytest.raises(ValueError):
+        bwd(x, dy[:, :5], mean, var, inv, weight, 2)        # dy of another shape
+    with pytest.raises(ValueError):
+        bwd(x, dy.to(BF16), mean, var, inv, weight, 2)      # mixed types
+    with pytest.raises(ValueError):
+        bwd(x, dy, mean[:1], var[:1], inv[:1], weight, 2)   # statistics of one user
+    with pytest.raises(ValueError):
+        bwd(x, dy, mean, var.t().contiguous().t(), inv, weight, 2)
+    with pytest.raises(NotImplementedError):
+        fwd(x[:0], weight, bias, 2)
+    # dy in another layout is made contiguous: the same bits
+    dyt = dy.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not dyt.is_contiguous()
+    assert all(torch.equal(a, b) for a, b in zip(bwd(x, dyt, mean, var, inv, weight, 2),
+                                                 bwd(x, dy, mean, var, inv, weight, 2)))
+
+
+def test_cuda_tensor_never_reaches_the_plain_batch_norm(cuda_device, monkeypatch):
+    """On the card the batch norm's forward and backward, as the models call
+    them, launch the kernels and never the plain version; on the CPU the
+    plain version runs and nothing launches."""
+    from gqx_torch.models.common import BatchNorm
+    from gqx_torch.models.folded import folded_users
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    real = bn_ops.forward_plain, bn_ops.backward_plain
+    monkeypatch.setattr(bn_ops, "forward_plain", refuse)
+    monkeypatch.setattr(bn_ops, "backward_plain", refuse)
+    before, by_route = bn_ops.launches, dict(bn_ops.launches_by_route)
+    for users, dtype, hw in ((2, BF16, 8), (1, BF16, 4), (2, F32, 32)):
+        bn = BatchNorm(16).to(cuda_device)
+        x = torch.randn(2 * 32, 16, hw, hw, device="cuda").to(dtype).requires_grad_(True)
+        with folded_users(users) if users > 1 else contextlib.nullcontext() as ctx:
+            y = bn(x)
+        ghosts = [ctx.ghosts[bn.weight], ctx.ghosts[bn.bias]] if users > 1 else \
+            [bn.weight, bn.bias]
+        dx, dw, db = torch.autograd.grad(y.float().square().sum(), [x] + ghosts)
+        assert dw.shape == db.shape == ((users, 16) if users > 1 else (16,))
+    torch.cuda.synchronize()
+    # float32 32x32 at 32 images a user: a group of 128 KB, twice that backward
+    assert bn_ops.launches == before + 6
+    assert bn_ops.launches_by_route == {
+        **by_route, "forward.smem": by_route["forward.smem"] + 3,
+        "backward.smem": by_route["backward.smem"] + 2,
+        "backward.two_pass": by_route["backward.two_pass"] + 1}
+    monkeypatch.setattr(bn_ops, "forward_plain", real[0])
+    monkeypatch.setattr(bn_ops, "backward_plain", real[1])
+    x = torch.randn(4, 3, 5, 5)
+    y, mean, var, inv = bn_ops.grouped_bn_forward(x, torch.ones(3), torch.zeros(3), 2, BN_EPS)
+    bn_ops.grouped_bn_backward(x, torch.randn(4, 3, 5, 5), mean, var, inv, torch.ones(3), 2)
+    assert bn_ops.launches == before + 6
+
+
+def test_cuda_folded_resnet50_step_takes_the_bn_kernels(cuda_device):
+    """A folded bf16 ResNet-50 forward and backward launches each of its 53
+    batch norms once each way, all read once from shared memory."""
+    from gqx_torch.config import GQConfig
+    from gqx_torch.models import create_model
+    from gqx_torch.train import create_train_state, folded_user_grads
+
+    cfg = GQConfig(network="resnet50", quantizer="hsq", c_dim=16, k_bit=8, n_bit=6,
+                   num_users=4, batch_size=32, compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    model = create_model("resnet50", 10, "bfloat16", gen)
+    _, plan = create_train_state(cfg, model, device="cuda")
+    x = torch.randn(4, 32, 3, 32, 32, generator=gen).to(cuda_device)
+    y = torch.randint(0, 10, (4, 32), generator=gen).to(cuda_device)
+    before = dict(bn_ops.launches_by_route)
+    _, grads = folded_user_grads(model, plan, plan.names, x, y)
+    torch.cuda.synchronize()
+    assert bn_ops.launches_by_route == {
+        **before, "forward.smem": before["forward.smem"] + 53,
+        "backward.smem": before["backward.smem"] + 53}
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
