@@ -78,7 +78,7 @@ def readings(workload: str, seed: int, program: bool, faults: bool, device):
     if faults:
         out.append(("fault_k7_scaled", _program(spec, mix, seed, device, plants.k7_scaled)))
         out.append(("fault_k7_zero", _program(spec, mix, seed, device, plants.k7_zero)))
-    data = ref_step.Data(mix["data"], seed)
+    data = ref_step.training_data(spec, mix["data"], seed)
     truth = cell.reference(spec, mix, seed, device, data)
     out = [(what, got, truth) for what, got in out]
     if faults:

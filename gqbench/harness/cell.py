@@ -173,15 +173,22 @@ def _run(rank, world, cell, bench, spec, mix, seed, seconds, traced, device, t0,
 def reference(spec, mix, seed: int, device, data=None, **kw) -> dict:
     """The reference's readings of the checked steps (``kw`` as
     ``reference.step.run`` takes them)."""
-    data = ref_step.Data(mix["data"], seed) if data is None else data
+    data = ref_step.training_data(spec, mix["data"], seed) if data is None else data
     return ref_step.run(spec, mix, seed, data, manifest.ROOT, device, CHECKED_STEPS, **kw)
 
 
 def verdict(readings: dict, ref: dict, spec, workload: str) -> dict:
     """The compared numbers of ``readings`` against the reference's, each
-    beside its limit."""
-    values = check.numbers(readings, ref, ref_model.leaf_families(spec))
-    return check.judge(values, manifest.limits(workload))
+    beside its limit; the leaf families and running statistics are the
+    model family's."""
+    values = check.numbers(readings, ref, ref_model.leaf_families(spec),
+                           ref_model.family(spec).FAMILIES, bool(ref_model.running_stats(spec)))
+    limits = manifest.limits(workload)
+    unmatched = check.unmatched_limits(values, limits)
+    if unmatched:
+        log(f"[check] the limits of {workload} and the numbers its cell gives differ in "
+            f"{unmatched}")
+    return check.judge(values, limits)
 
 
 def per_layer_metrics(view, bench: dict, workload: str):

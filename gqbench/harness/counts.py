@@ -1,9 +1,10 @@
 """Operations and bytes from a configuration's shapes and a traffic mix, and
 the chip's published peaks: what a roofline share or a utilization divides.
 
-Counted from the configuration file alone (``reference.model.conv_shapes``),
-never from the measured program, so every implementation of a layer is
-held to the same work.
+Counted from the configuration file alone, by its model family
+(``flops_per_sample``; the image families' ``conv_shapes`` for the
+per-user conv weight gradient), never from the measured program, so every
+implementation of a layer is held to the same work.
 """
 
 from __future__ import annotations
@@ -21,17 +22,24 @@ PEAK_HBM_BPS = 3.35e12
 DTYPE_BYTES = {"bfloat16": 2, "float32": 4}
 
 
+def flops_per_sample(spec) -> float:
+    """Forward + backward operations of one training sample, as the model's
+    family counts them."""
+    return ref_model.family(spec).flops_per_sample(spec)
+
+
 def macs_per_image(spec) -> int:
-    """Multiply-adds of one image's forward: every convolution and the
-    dense layer (batch norm, pooling and activations are not counted)."""
+    """Multiply-adds of one image's forward in the image families: every
+    convolution and the dense layer (batch norm, pooling and activations
+    are not counted)."""
     return sum(c["cin"] * c["cout"] * c["k"] * c["k"] * c["ho"] * c["wo"]
                for c in ref_model.conv_shapes(spec))
 
 
 def train_flops_per_image(spec) -> float:
-    """Forward + backward (data and weight gradients): 3 x 2 x MACs, no
-    recomputation."""
-    return 6.0 * macs_per_image(spec)
+    """``flops_per_sample``: for the image families 3 x 2 x MACs (data and
+    weight gradients), no recomputation."""
+    return flops_per_sample(spec)
 
 
 def least_ms(bytes_moved: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> float:

@@ -1,9 +1,12 @@
 """Finds what a run needs by name: the cell in ``BENCHMARK.json``, its
 configuration (``gqbench/configs/<name>.json``), its traffic mix
 (``gqbench/traffic/<name>.json``), the limits of its correctness check
-(``gqbench/limits/<workload>.json``) and each per-layer metric's reader
-(``gqbench/metrics/<name>.py``).  A cell, a mix or a metric is added by
-adding files and entries; no code here names one."""
+(``gqbench/limits/<workload>.json``), each per-layer metric's reader
+(``gqbench/metrics/<name>.py``) and the module of the configuration's model
+family and of its program half (``gqbench/families/<name>.py``, looked up in
+the data directory first).  A cell, a mix, a metric or a model family is
+added by adding files and entries; no code here or in the rest of the
+harness names one."""
 
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from typing import Dict, List
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
 #: the manifest, and the directory holding ``configs/``, ``traffic/``,
-#: ``limits/`` and ``metrics/`` (the CPU tests point both at their own)
+#: ``limits/`` and ``families/`` (the CPU tests point both at their own; a
+#: family that theirs lacks is the benchmark's)
 BENCHMARK_FILE = os.path.join(ROOT, "BENCHMARK.json")
 DATA_DIR = BENCH_DIR
 
@@ -82,3 +86,25 @@ def reader(name: str) -> ModuleType:
         spec.loader.exec_module(mod)
         _readers[name] = mod
     return _readers[name]
+
+
+_families: Dict[str, ModuleType] = {}
+
+
+def family(name: str) -> ModuleType:
+    """The module ``families/<name>.py`` of the data directory, else of the
+    benchmark: a model family (``gqbench/families/__init__.py`` says what it
+    supplies) or a family's program half."""
+    for base in (DATA_DIR, BENCH_DIR):
+        path = os.path.join(base, "families", f"{name}.py")
+        if os.path.exists(path):
+            break
+    else:
+        raise LookupError(f"no family {name!r}: no families/{name}.py in {DATA_DIR} "
+                          f"or {BENCH_DIR}")
+    if path not in _families:
+        spec = importlib.util.spec_from_file_location(f"gqbench_family_{len(_families)}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _families[path] = mod
+    return _families[path]

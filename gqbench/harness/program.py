@@ -2,10 +2,19 @@
 
 ``Session`` builds what ``gqx_torch.runner.run_training`` builds for a
 configuration and a traffic mix (the data pipeline with its native augment,
-the model, the training state and the step of ``make_train_step``), puts
+the model, the training state and the step of ``make_train_step``; the
+model, its leaves' paths and its running statistics by the program half of
+the configuration's model family, ``family_program``), puts
 the benchmark's weights into it, and runs steps in the loop's order: the
 pipeline's next global batch, ``runner.to_device``, the step.  Evals, logs
 and checkpoints are left out.
+
+On a card ``to_device`` runs on a stream of its own, which the compute
+stream waits for on the device.  Its pageable copy then waits for that
+copy alone, not for the steps queued on the compute stream, so the host
+dispatches the next step while the card still runs the last one: a host
+that stands still for less than the queued work no longer leaves the card
+idle.  How far ahead the host gets is bounded by the driver's launch queue.
 
 The weights are drawn from the seed on the device by the benchmark
 (``reference.model.init_weights``), so the program and the reference start
@@ -26,6 +35,7 @@ from typing import Dict, List
 import torch
 from torch.autograd.profiler import record_function
 
+from gqbench.harness import manifest
 from gqbench.reference import model as ref_model
 
 #: the benchmark's ranges round the program's calls into each layer, as
@@ -48,22 +58,25 @@ COPY_SPAN = "gqbench::copy"
 STEP_SPAN = "gqbench::step"
 
 
+def family_program(spec):
+    """The program half of the configuration's model family."""
+    return manifest.family(ref_model.family(spec).PROGRAM)
+
+
 def gq_config(spec, traffic, seed: int):
     from gqx_torch.config import GQConfig
 
-    data = traffic["data"]
     return GQConfig(
-        network=spec["network"], dataset=data["dataset"], num_classes=spec["num_classes"],
-        quantizer=traffic["quantizer"], mode=traffic["mode"], c_dim=traffic["c_dim"],
-        k_bit=traffic["k_bit"], n_bit=traffic["n_bit"], random=traffic["random"],
+        network=spec["network"], quantizer=traffic["quantizer"], mode=traffic["mode"],
+        c_dim=traffic["c_dim"], k_bit=traffic["k_bit"], n_bit=traffic["n_bit"],
+        random=traffic["random"],
         num_users=traffic["num_users"], batch_size=traffic["batch_size"], lr=traffic["lr"],
         momentum=traffic["momentum"], weight_decay=traffic["weight_decay"],
         ef=traffic["ef"], two_phase=traffic["two_phase"], seed=int(seed),
         backend=traffic["backend"], wire=traffic.get("wire", "logical"),
         compute_dtype=spec["compute_dtype"], passthrough_threshold=traffic["passthrough"],
         folded_users=traffic["folded_users"],
-        dataset_kwargs=dict(num_train=data["num_train"], num_test=data["num_test"],
-                            seed=int(seed)))
+        **family_program(spec).config_fields(spec, traffic, seed))
 
 
 class Session:
@@ -71,9 +84,7 @@ class Session:
 
     def __init__(self, spec, traffic, seed: int, device: torch.device, rank: int = 0,
                  world: int = 1):
-        from gqx_torch.convert import leaf_paths
         from gqx_torch.data import Pipeline
-        from gqx_torch.models import create_model
         from gqx_torch.parallel.distributed import local_user_batch
         from gqx_torch.runner import to_device
         from gqx_torch.train import create_train_state, make_train_step
@@ -87,11 +98,11 @@ class Session:
         self.parts["data"] = time.perf_counter() - t
 
         t = time.perf_counter()
-        model = create_model(spec["network"], self.config.num_classes, spec["compute_dtype"],
-                             None, image_shape=self.pipeline.image_shape)
+        self.half = family_program(spec)
+        model = self.half.build(spec, self.config, self.pipeline)
         self.state, self.plan = create_train_state(self.config, model, device=device)
         self.step_fn = make_train_step(self.config, self.plan)
-        self.paths = leaf_paths(model)
+        self.paths = self.half.leaf_paths(model)
         weights = ref_model.init_weights(spec, seed, device)
         params = dict(model.named_parameters())
         if sorted(self.paths.values()) != sorted(weights):
@@ -111,6 +122,7 @@ class Session:
             (lambda a: local_user_batch(a, rank, world))
         self.batches = self._epochs()
         self.data_s = self.copy_s = 0.0
+        self.copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self.parts["state"] = time.perf_counter() - t
 
     @property
@@ -124,18 +136,31 @@ class Session:
     def step(self, spans: bool = False):
         """One step of the loop; returns the step's loss (a device scalar).
         The host time of the pipeline's next batch is added to ``data_s``,
-        that of ``to_device`` (whose pageable copy waits for the work queued
-        on the stream) to ``copy_s``."""
+        that of ``to_device`` to ``copy_s``."""
         t = time.perf_counter()
         with record_function(DATA_SPAN) if spans else contextlib.nullcontext():
             x, y = next(self.batches)
         t1 = time.perf_counter()
         with record_function(COPY_SPAN) if spans else contextlib.nullcontext():
-            xt, yt = self._to_device(self._local(x), self._local(y), self.device)
+            xt, yt = self._copy(self._local(x), self._local(y))
         t2 = time.perf_counter()
         self.data_s += t1 - t
         self.copy_s += t2 - t1
         return self.step_fn(self.state, xt, yt, self.lr, self.wd, self.generator, 1.0)
+
+    def _copy(self, x, y):
+        """``to_device`` on the copy stream; the compute stream waits for it
+        on the device, and the batch's memory is not reused before the
+        compute stream is done with it."""
+        if self.copy_stream is None:
+            return self._to_device(x, y, self.device)
+        with torch.cuda.stream(self.copy_stream):
+            xt, yt = self._to_device(x, y, self.device)
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_stream(self.copy_stream)
+        xt.record_stream(compute)
+        yt.record_stream(compute)
+        return xt, yt
 
     # -- the checked steps --------------------------------------------------
     def checked_steps(self, steps: int = 3) -> dict:
@@ -143,11 +168,11 @@ class Session:
         each step's loss, the norm per leaf of the first step's gradient as
         the optimizer got it (its momentum after one step less the weight
         decay, the momentum starting at zero), the norm per leaf of the
-        parameters' change and per batch-norm statistic of its change."""
+        parameters' change and per running statistic of its change."""
         model = self.model
         params = dict(model.named_parameters())
         start = {n: p.detach().clone() for n, p in params.items()}
-        buffers = self._bn_buffers()
+        buffers = self.half.running_buffers(model, self.paths)
         start_buf = {k: b.detach().clone() for k, b in buffers.items()}
         losses, grad = [], None
         for i in range(steps):
@@ -159,25 +184,13 @@ class Session:
         bn = {k: _norm(b - start_buf[k]) for k, b in buffers.items()}
         return dict(losses=[float(v) for v in losses], grad=grad, change=change, bn_stats=bn)
 
-    def _bn_buffers(self) -> Dict[str, torch.Tensor]:
-        """{"<bn prefix>/mean" or "/var": running statistic} by the
-        configuration's paths."""
-        mods = dict(self.model.named_modules())
-        out = {}
-        for n, path in self.paths.items():
-            if path.endswith("/BatchNorm_0/scale"):
-                mod = mods[n[:-len(".weight")]]
-                prefix = path[:-len("/BatchNorm_0/scale")]
-                out[f"{prefix}/mean"] = mod.running_mean
-                out[f"{prefix}/var"] = mod.running_var
-        return out
-
     # -- the measured window ------------------------------------------------
     def window(self, seconds: float = None, steps: int = None) -> dict:
         """Steps for ``seconds`` of host time (or exactly ``steps``), with no
         synchronise of the benchmark's own: an event is recorded on the
         stream after each step and read when the window has closed, and so
-        is each loss."""
+        is each loss.  When the time is up nothing more is sent, and every
+        step sent counts, over the device time to its end."""
         cuda = self.device.type == "cuda"
         start = _event(cuda)
         ends, losses = [], []

@@ -1,9 +1,8 @@
 """Host ms a step inside the benchmark's ``gqbench::data`` range: the
 pipeline's next global batch, with its native augment; the mean over the
 measured window's steps, on the host clock.  ``runner.to_device`` is timed
-apart (``gqbench::copy``, the run's ``[window]`` line): its pageable copy
-waits for the work queued on the stream, so it reads the device's backlog
-and not the data layer."""
+apart (``gqbench::copy``, the run's ``[window]`` line), on a copy stream of
+its own (``program.Session``)."""
 
 UNIT = "ms"
 LAYER = "data"

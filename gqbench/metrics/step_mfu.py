@@ -1,8 +1,9 @@
 """The whole step's share of the chip's bf16 peak: the model's forward and
-backward operations a training image (6 x MACs, counted from the
-configuration's conv and dense shapes, no recomputation) times the
-measured window's images a second, over 989 TFLOP/s (H100 SXM, dense) a
-chip the round runs on."""
+backward operations a training sample (``counts.flops_per_sample``, as the
+configuration's model family counts them: 6 x MACs of the conv and dense
+shapes for the image families, no recomputation) times the measured
+window's samples a second, over 989 TFLOP/s (H100 SXM, dense) a chip the
+round runs on."""
 
 from gqbench.harness import counts
 
@@ -17,4 +18,4 @@ def read(view):
     if not rate:
         return None
     peak = counts.PEAK_BF16_FLOPS * counts.chips(view.traffic)
-    return 100.0 * rate * counts.train_flops_per_image(view.spec) / peak
+    return 100.0 * rate * counts.flops_per_sample(view.spec) / peak

@@ -5,15 +5,16 @@ One step, as the published method runs it (the reference implementation's
 ``one_iter``): each user's loss and gradient on its own micro-batch (a loop
 over the users), the users' gradients packed into compression units, each
 user's unit compressed and the server's mean of the decompressed units, then
-SGD with momentum and weight decay, and each batch norm's running
-statistics moved by the users' mean batch statistics (momentum 0.9).
+SGD with momentum and weight decay, and the model's running statistics
+moved by the users' batch statistics, as its family moves them.
 
 Compression, from the method's description and not from the measured
 program's code:
   - units: leaves of at most ``passthrough`` elements travel uncompressed
     in one unit; the others that split into subvectors of ``c_dim`` form one
-    unit, leaves concatenated in path order, conv kernels flattened as
-    (cout, kh, kw, cin), an HSQ unit zero-padded to a multiple of 65,536
+    unit, leaves concatenated in path order, each flattened in the order
+    its family gives (``unit_dims``: conv kernels as (cout, kh, kw, cin),
+    every other leaf row-major), an HSQ unit zero-padded to a multiple of 65,536
     elements; each leaf, and the pad, is a segment of the norm quantizer;
   - HSQ: per subvector the codeword of largest |<x, c>| and u = <x, c>;
     PVQ: p = x @ pinv(C^T)^T, a code drawn with probability |p_j| / |p|_1
@@ -28,8 +29,8 @@ program's code:
 The codebook is the shipped file's, rows scaled to unit length.
 
 Everything runs in float32 (or the ``dtype`` asked for) with TF32 off.
-``quant`` (the control) rounds the model's products as ``model.forward``
-says; ``half`` (a planted fault) trains each user on the first half of its
+``quant`` (the control) rounds the model's products as its family's
+``user_loss`` says; ``half`` (a planted fault) trains each user on the first half of its
 micro-batch.
 """
 
@@ -41,8 +42,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from gqbench.families.images import Data
 from gqbench.reference import model as ref_model
 from gqbench.reference import philox
 
@@ -107,18 +108,20 @@ def plan(spec, traffic) -> List[dict]:
     return units
 
 
-def _flat(leaf: torch.Tensor, users: int) -> torch.Tensor:
-    """(U, *shape) -> (U, n), conv kernels as (cout, kh, kw, cin)."""
-    if leaf.dim() == 5:
-        leaf = leaf.permute(0, 1, 3, 4, 2)
+def _flat(leaf: torch.Tensor, users: int, dims=None) -> torch.Tensor:
+    """(U, *shape) -> (U, n), the leaf's axes in the order ``dims`` (None:
+    row-major)."""
+    if dims is not None:
+        leaf = leaf.permute(0, *(d + 1 for d in dims))
     return leaf.reshape(users, -1)
 
 
-def _unflat(vec: torch.Tensor, shape) -> torch.Tensor:
-    if len(shape) == 4:
-        co, ci, kh, kw = shape
-        return vec.reshape(co, kh, kw, ci).permute(0, 3, 1, 2).contiguous()
-    return vec.reshape(shape)
+def _unflat(vec: torch.Tensor, shape, dims=None) -> torch.Tensor:
+    """(n,) -> ``shape``, undoing ``_flat``."""
+    if dims is None:
+        return vec.reshape(shape)
+    inverse = sorted(range(len(dims)), key=lambda d: dims[d])
+    return vec.reshape([shape[d] for d in dims]).permute(inverse).contiguous()
 
 
 def quantize_norms(u: torch.Tensor, segments, n_bit: int, r: torch.Tensor) -> torch.Tensor:
@@ -167,14 +170,16 @@ def _encode(rows: torch.Tensor, kind: str, cb: torch.Tensor, c_pinv_t: torch.Ten
 
 
 def aggregate(units, grads: Dict[str, torch.Tensor], users: int, traffic,
-              generator: torch.Generator, cb: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The server's mean of the users' decompressed units, per leaf."""
+              generator: torch.Generator, cb: torch.Tensor,
+              dims: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+    """The server's mean of the users' decompressed units, per leaf (each
+    flattened by ``dims``, the family's ``unit_dims``)."""
     device = cb.device
     c_pinv_t = torch.from_numpy(np.linalg.pinv(cb.double().cpu().numpy().T)).to(
         device, cb.dtype).t()
     out = {}
     for unit in units:
-        parts = [_flat(grads[p], users) for p in unit["paths"]]
+        parts = [_flat(grads[p], users, dims.get(p)) for p in unit["paths"]]
         if unit["kind"] == "identity":
             mean = torch.cat(parts, dim=1).mean(0)
         else:
@@ -203,73 +208,47 @@ def aggregate(units, grads: Dict[str, torch.Tensor], users: int, traffic,
 
 
 def user_grads(spec, params, x, y, quant=None):
-    """Per-user losses (U,), gradients {path: (U, *shape)} and batch
-    statistics {bn prefix: (mean (U, C), var (U, C))} by a loop over users."""
+    """Per-user losses (U,), gradients {path: (U, *shape)} and the batch
+    values of the running statistics {key: tensors (U, ...)} by a loop over
+    users."""
     users = x.shape[0]
     paths = list(params)
     leaves = [params[p] for p in paths]
-    grads = {p: torch.empty((users,) + tuple(params[p].shape), dtype=x.dtype, device=x.device)
+    grads = {p: torch.empty((users,) + tuple(params[p].shape), dtype=params[p].dtype,
+                            device=params[p].device)
              for p in paths}
-    means, varis = {}, {}
+    values = {}
     losses = []
     for a in range(users):
         rec = ref_model.Recorder()
-        logits = ref_model.forward(spec, params, x[a], rec, quant)
-        loss = F.cross_entropy(logits, y[a])
+        loss = ref_model.user_loss(spec, params, x[a], y[a], rec, quant)
         for p, g in zip(paths, torch.autograd.grad(loss, leaves)):
             grads[p][a] = g
-        for k, (mu, var) in rec.stats.items():
-            means.setdefault(k, []).append(mu)
-            varis.setdefault(k, []).append(var)
+        for k, v in rec.stats.items():
+            values.setdefault(k, []).append(v)
         losses.append(loss.detach())
-    stats = {k: (torch.stack(means[k]), torch.stack(varis[k])) for k in means}
+    stats = {k: tuple(torch.stack(u) for u in zip(*v)) for k, v in values.items()}
     return torch.stack(losses), grads, stats
 
 
-class Data:
-    """The cell's synthetic training set, made from the seed as the traffic
-    file defines it: 10 class templates of U[0, 256) integers, each image
-    its class's template / 2 + 64 plus N(0, 32) noise, clipped to bytes;
-    an epoch's order is a permutation drawn from seed * 100003 + epoch; an
-    image enters the step as (x / 255 - mean) / std, channels first."""
-
-    def __init__(self, data, seed: int):
-        shape = tuple(data["image_shape"])
-        classes = data["num_classes"]
-        templates = np.random.default_rng(seed).integers(0, 256, size=(classes,) + shape)
-        r = np.random.default_rng(seed + 1)
-        n = data["num_train"]
-        self.y = r.integers(0, classes, size=n)
-        noise = r.normal(0, 32, size=(n,) + shape)
-        self.x = np.clip(templates[self.y] * 0.5 + 64 + noise, 0, 255).astype(np.uint8)
-        self.mean, self.std = data["mean"], data["std"]
-        self.seed = seed
-
-    def batch(self, step: int, users: int, batch: int, device):
-        """The ``step``-th (from 0) global batch of epoch 1: x (U, B, C, H,
-        W) float32, y (U, B) int64."""
-        order = np.random.default_rng(self.seed * 100003 + 1).permutation(len(self.x))
-        g = users * batch
-        idx = order[step * g:(step + 1) * g]
-        x = (self.x[idx].astype(np.float32) / np.float32(255.0) - np.float32(self.mean)) \
-            / np.float32(self.std)
-        x = torch.from_numpy(x).to(device).permute(0, 3, 1, 2)
-        x = x.reshape((users, batch) + tuple(x.shape[1:]))
-        y = torch.from_numpy(self.y[idx].astype(np.int64)).to(device).reshape(users, batch)
-        return x, y
+def training_data(spec, data, seed: int):
+    """The cell's training set: the family's ``Data`` where it has one, else
+    the shared synthetic images."""
+    return getattr(ref_model.family(spec), "Data", Data)(data, seed)
 
 
 def norms(tree: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return {k: float(torch.linalg.vector_norm(v.double())) for k, v in tree.items()}
 
 
-def run(spec, traffic, seed: int, data: Data, root: str, device, steps: int = 3,
+def run(spec, traffic, seed: int, data, root: str, device, steps: int = 3,
         quant=None, half: bool = False, dtype: torch.dtype = torch.float32) -> dict:
     """``steps`` reference steps from the seed's weights and data.  Returns
     the readings the check compares: ``losses`` (per step), ``grad`` (norm
     per leaf of the first step's aggregated gradient, as the optimizer gets
     it), ``change`` (norm per leaf of the parameters' change over the
-    steps) and ``bn_stats`` (norm per running statistic of its change).
+    steps) and ``bn_stats`` (norm per running statistic of its change; none
+    where the model keeps none).  ``data`` is ``training_data``'s.
     ``dtype`` float64 (a witness of float32's own rounding) computes every
     tensor in it from the same float32 weights, data, codebook and draws."""
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -281,13 +260,12 @@ def run(spec, traffic, seed: int, data: Data, root: str, device, steps: int = 3,
                   for p, t in ref_model.init_weights(spec, seed, device).items()}
         start = {p: t.detach().clone() for p, t in params.items()}
         trace = {p: torch.zeros_like(t) for p, t in params.items()}
-        running = {}
-        for prefix in ref_model.bn_paths(spec):
-            c = params[f"{prefix}/BatchNorm_0/scale"].shape[0]
-            running[f"{prefix}/mean"] = torch.zeros(c, dtype=dtype, device=device)
-            running[f"{prefix}/var"] = torch.ones(c, dtype=dtype, device=device)
+        fam = ref_model.family(spec)
+        running = {k: torch.full(shape, value, dtype=dtype, device=device)
+                   for k, (shape, value) in fam.running_stats(spec).items()}
         running0 = {k: v.clone() for k, v in running.items()}
         units = plan(spec, traffic)
+        dims = fam.unit_dims(spec)
         cb = torch.from_numpy(read_codebook(root, traffic["c_dim"],
                                             2 ** traffic["k_bit"])).to(device, dtype)
         generator = torch.Generator().manual_seed(int(seed))
@@ -295,25 +273,22 @@ def run(spec, traffic, seed: int, data: Data, root: str, device, steps: int = 3,
         losses, first = [], None
         for step in range(steps):
             x, y = data.batch(step, users, batch, device)
-            x = x.to(dtype)
+            if x.is_floating_point():
+                x = x.to(dtype)
             if half:
                 x, y = x[:, :batch // 2], y[:, :batch // 2]
             loss_u, grads, stats = user_grads(spec, params, x, y, quant)
             losses.append(float(loss_u.mean()))
-            agg = aggregate(units, grads, users, traffic, generator, cb)
+            agg = aggregate(units, grads, users, traffic, generator, cb, dims)
             del grads
             with torch.no_grad():
-                agg = {p: _unflat(agg[p], params[p].shape) for p in params}
+                agg = {p: _unflat(agg[p], params[p].shape, dims.get(p)) for p in params}
                 if first is None:
                     first = norms(agg)
                 for p, t in params.items():
                     trace[p] = agg[p] + wd * t + mom * trace[p]
                     t.sub_(lr * trace[p])
-                for prefix in ref_model.bn_paths(spec):
-                    mu, var = stats[prefix]
-                    rm, rv = running[f"{prefix}/mean"], running[f"{prefix}/var"]
-                    rm.copy_(0.9 * rm + 0.1 * mu.mean(0))
-                    rv.copy_(0.9 * rv + 0.1 * var.mean(0))
+                fam.update_running(spec, running, stats)
         change = norms({p: params[p].detach() - start[p] for p in params})
         bn = norms({k: running[k] - running0[k] for k in running})
         return dict(losses=losses, grad=first, change=change, bn_stats=bn)
